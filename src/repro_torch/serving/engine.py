@@ -1,0 +1,249 @@
+"""Greedy continuous-batching serving engine over packed MixFP4 weights and
+an optional packed MixFP4 KV cache.
+
+Counterpart of ``repro/serving/engine.py``, fixed-slot path: projection
+weights are held only as packed QTensors and every projection runs the
+W4A16 kernel; with ``kv_quant="mixfp4"`` every decode step quantizes the
+new K/V rows with the row-quantizer kernel, scatters their bytes into the
+cache in place and reads the cache with the decode-attention kernel.
+Admissions prefill the whole prompt in one pass (``prefill_slot``); with
+``prefill_buckets`` (the default ``"auto"``) the prompt pads up the
+pow-2/64-step length ladder, which leaves the emitted stream bitwise
+unchanged.
+
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+item): W4A4 activations, the paged KV pool, chunked prefill, the request
+lifecycle (faults, deadlines, journal, watchdog, metrics), and mesh
+serving.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import qtensor
+from repro_torch.models import build_model
+from repro_torch.models.base import ArchConfig, pack_projections
+
+__all__ = ["Request", "ServeEngine"]
+
+REASON_MAX_NEW = "max_new_tokens"
+REASON_NAN_LOGITS = "nan_logits"
+
+# engine argument -> the ROADMAP item that ports it
+_NOT_PORTED = {
+    "act_quant": "§1 item 6 (W4A4 serving)",
+    "act_rht": "§1 item 6 (W4A4 serving)",
+    "kv_pool": "§1 item 7 (paged and chunked serving)",
+    "prefill_chunk": "§1 item 7 (paged and chunked serving)",
+    "faults": "§1 item 9 (serving lifecycle)",
+    "journal_dir": "§1 item 9 (serving lifecycle)",
+    "hung_step_budget_ms": "§1 item 9 (serving lifecycle)",
+    "deadline_ms": "§1 item 9 (serving lifecycle)",
+    "ttft_budget_ms": "§1 item 9 (serving lifecycle)",
+    "mesh": "§1 item 11 (multi-GPU)",
+}
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray            # (len,) int32
+    max_new_tokens: int = 16
+    generated: list = dataclasses.field(default_factory=list)
+    done: bool = False
+    finish_reason: str | None = None
+    # first greedy token, produced by the admission prefill and emitted by
+    # the first step()
+    _next: int | None = None
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+class ServeEngine:
+    """Greedy continuous-batching decoder for the dense transformer."""
+
+    def __init__(self, cfg: ArchConfig, params, *, batch_size: int = 8,
+                 max_len: int = 512, pack_weights: bool = True,
+                 method: str = "mixfp4", kv_quant: str | None = None,
+                 prefill_buckets: str | None = "auto", device="cuda",
+                 act_quant: str | None = None, act_rht: bool = False,
+                 kv_pool: int | None = None,
+                 prefill_chunk: int | None = None, faults=None,
+                 journal_dir: str | None = None,
+                 hung_step_budget_ms: float | None = None,
+                 deadline_ms: float | None = None,
+                 ttft_budget_ms: float | None = None, mesh=None):
+        given = {"act_quant": act_quant not in (None, "bf16"),
+                 "act_rht": act_rht, "kv_pool": kv_pool is not None,
+                 "prefill_chunk": prefill_chunk is not None,
+                 "faults": faults is not None,
+                 "journal_dir": journal_dir is not None,
+                 "hung_step_budget_ms": hung_step_budget_ms is not None,
+                 "deadline_ms": deadline_ms is not None,
+                 "ttft_budget_ms": ttft_budget_ms is not None,
+                 "mesh": mesh is not None}
+        for arg, on in given.items():
+            if on:
+                raise NotImplementedError(
+                    f"ServeEngine({arg}=...) is not ported yet "
+                    f"(ROADMAP {_NOT_PORTED[arg]})")
+        if not pack_weights:
+            raise NotImplementedError(
+                "dense qdq-simulated serving belongs to the training slice "
+                "(ROADMAP §1 item 10); serve packed weights")
+        if kv_quant not in (None, "bf16", "mixfp4"):
+            raise ValueError(f"unknown kv_quant {kv_quant!r} "
+                             "(expected None, 'bf16' or 'mixfp4')")
+        if prefill_buckets not in (None, "off", "auto", "pow2-64"):
+            raise ValueError(f"unknown prefill_buckets {prefill_buckets!r}")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.model = build_model(cfg)
+        self.batch_size = batch_size
+        self.max_len = max_len
+        self.kv_quant = kv_quant or "bf16"
+        # projections become packed QTensors (leaves already packed, e.g.
+        # bytes carried over from another engine, pass through unchanged)
+        self.params, self.packed_bytes, self.dense_bytes = pack_projections(
+            _to_device(params, self.device), method=method)
+        self.compression = (self.dense_bytes / self.packed_bytes
+                            if self.packed_bytes else 1.0)
+        self.cache = self.model.init_cache(
+            batch_size, max_len, device=self.device,
+            kv_quant="mixfp4" if self.kv_quant == "mixfp4" else None)
+        self.lengths = np.zeros((batch_size,), np.int32)
+        self.slots: list[Request | None] = [None] * batch_size
+        self.prefill_buckets = (None if prefill_buckets in (None, "off")
+                                else "pow2-64")
+        self.admissions = 0
+        self.decode_steps = 0
+
+    # ------------------------------------------------------------------
+    def kv_cache_bytes(self) -> int:
+        """Device bytes of the KV cache (packed leaves count wire bytes)."""
+        total = 0
+        for leaf in (self.cache["k"], self.cache["v"]):
+            total += (leaf.nbytes if isinstance(leaf, qtensor.QTensor)
+                      else leaf.numel() * leaf.element_size())
+        return total
+
+    @staticmethod
+    def bucket_len(p_len: int, max_len: int) -> int:
+        """The pow-2/64-step prompt-length ladder: next power of two from
+        8 below 64, then 64-step rungs, clamped to the cache length."""
+        b = 8
+        while b < min(p_len, 64):
+            b *= 2
+        if p_len > 64:
+            b = -(-p_len // 64) * 64
+        return min(b, max_len)
+
+    def _validate(self, req: Request):
+        if len(req.prompt) == 0:
+            raise ValueError("empty prompt: a request must carry at least "
+                             "one prompt token")
+        if req.max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        # the final generated token is emitted but never fed back
+        if len(req.prompt) + req.max_new_tokens - 1 > self.max_len:
+            raise ValueError(
+                f"request {req.uid} needs {len(req.prompt)} prompt + "
+                f"{req.max_new_tokens} new tokens but the cache holds "
+                f"max_len={self.max_len}")
+
+    def add_request(self, req: Request) -> bool:
+        """Admit ``req`` into a free slot (prefilling it now); False when
+        every slot is busy.  A prompt whose prefill logits are not finite
+        is admitted and ends at once (``finish_reason="nan_logits"``)."""
+        self._validate(req)
+        free = next((i for i, s in enumerate(self.slots) if s is None), None)
+        if free is None:
+            return False
+        self.slots[free] = req
+        self.lengths[free] = 0
+        self.cache = self.model.reset_slot(self.cache, free)
+        self._prefill_slot(free, req)
+        return True
+
+    def has_work(self) -> bool:
+        return any(s is not None for s in self.slots)
+
+    def _prefill_slot(self, i: int, req: Request):
+        toks = np.asarray(req.prompt, np.int64)
+        s_len = len(toks)
+        if self.prefill_buckets:
+            pb = self.bucket_len(s_len, self.max_len)
+            if pb > s_len:
+                toks = np.pad(toks, (0, pb - s_len))
+        tokens = torch.as_tensor(toks[None, :], device=self.device)
+        logits, self.cache = self.model.prefill_slot(
+            self.params, tokens, self.cache, i, true_len=s_len)
+        self.lengths[i] = s_len
+        self.admissions += 1
+        finite, nxt = torch.stack([torch.isfinite(logits[0]).all().long(),
+                                   torch.argmax(logits[0])]).tolist()
+        if not finite:
+            # as in step(): a row whose logits are not finite ends its
+            # request with no token, and frees the slot
+            self._finish(i, REASON_NAN_LOGITS)
+            return
+        req._next = nxt
+
+    def _finish(self, i: int, reason: str):
+        req = self.slots[i]
+        req.done = True
+        req.finish_reason = reason
+        self.slots[i] = None
+
+    def step(self) -> list[tuple[int, int]]:
+        """One decode step for every active slot, each at its own cache
+        position; returns the (uid, token) pairs emitted.  A freshly
+        prefilled request first emits its prefill token, then decodes.  A
+        row whose logits are not finite ends that request (no token)."""
+        toks = np.zeros((self.batch_size,), np.int64)
+        out, active = [], []
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            if not req.generated:
+                req.generated.append(req._next)
+                out.append((req.uid, req._next))
+                if len(req.generated) >= req.max_new_tokens:
+                    self._finish(i, REASON_MAX_NEW)
+                    continue
+            toks[i] = req.generated[-1]
+            active.append(i)
+        if not active:
+            return out
+        # idle lanes decode a dummy token at row 0 of their (free) slot,
+        # which the next admission zeroes
+        lens = np.zeros((self.batch_size,), np.int64)
+        lens[active] = self.lengths[active]
+        logits, self.cache = self.model.decode_step(
+            self.params, torch.as_tensor(toks, device=self.device),
+            self.cache, torch.as_tensor(lens, device=self.device))
+        next_toks = torch.argmax(logits, dim=-1).cpu().numpy()
+        finite = torch.isfinite(logits).all(dim=-1).cpu().numpy()
+        self.decode_steps += 1
+        for i in active:
+            req = self.slots[i]
+            if not finite[i]:
+                self._finish(i, REASON_NAN_LOGITS)
+                continue
+            tok = int(next_toks[i])
+            req.generated.append(tok)
+            self.lengths[i] += 1
+            out.append((req.uid, tok))
+            if len(req.generated) >= req.max_new_tokens:
+                self._finish(i, REASON_MAX_NEW)
+        return out
