@@ -50,7 +50,8 @@ def params_from_numpy(tree: dict, cfg: ArchConfig, device="cuda") -> dict:
 
 def packed_from_numpy(tree: dict, cfg: ArchConfig, device="cuda") -> dict:
     """The reference's packed tree -> the port's packed parameters with the
-    same bytes (storage padding included)."""
+    same bytes (storage padding included), and the ``rht_signs`` record of
+    a tree packed with ``act_rht=True``."""
     dev = resolve_device(device)
 
     def leaf(a, layer):
@@ -64,6 +65,10 @@ def packed_from_numpy(tree: dict, cfg: ArchConfig, device="cuda") -> dict:
             layout=qtensor.BlockLayout2D(a.layout.bm, a.layout.bn),
             shape=tuple(a.shape), dtype=str(a.dtype))
 
-    return {"embed": _tensor(tree["embed"], dev),
-            "ln_f": _tensor(tree["ln_f"], dev),
-            "layers": _split_layers(tree["layers"], cfg.n_layers, leaf)}
+    out = {"embed": _tensor(tree["embed"], dev),
+           "ln_f": _tensor(tree["ln_f"], dev),
+           "layers": _split_layers(tree["layers"], cfg.n_layers, leaf)}
+    if "rht_signs" in tree:
+        out["rht_signs"] = {k: _tensor(v, dev)
+                            for k, v in tree["rht_signs"].items()}
+    return out

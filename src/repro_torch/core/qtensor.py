@@ -241,30 +241,102 @@ def stack(qts: Sequence[QTensor]) -> QTensor:
 
 
 # ---------------------------------------------------------------------------
-# qmm: dense activations x packed 2-D weight -> W4A16 kernel
+# qmm: x @ packed 2-D weight -> the W4A16, W4A4 or fused W4A4 kernel
 # ---------------------------------------------------------------------------
-def qmm(x: torch.Tensor, w: QTensor) -> torch.Tensor:
-    """y = x @ w, f32 out, for dense ``x`` (..., K) and an unbatched 2-D
-    packed weight: the W4A16 kernel (``kernels.ops.gemm_w4a16``).  x is
-    zero-padded onto the weight's stored K grid when that grid is wider
+def _act_scale32_like_quantize_rows(x2: torch.Tensor,
+                                    per_row: bool = False) -> torch.Tensor:
+    """The activation scale exactly as the row quantizer derives it
+    (``scaling.tensor_scale`` / ``scaling.row_scale``); zero K-padding
+    changes neither, so the unpadded rows give the same value.  All-zero
+    rows get scale 1 and quantize to zero codes."""
+    x2 = x2.to(torch.float32)
+    return scaling.row_scale(x2) if per_row else scaling.tensor_scale(x2)
+
+
+def qmm(x: Union[torch.Tensor, QTensor], w: QTensor, *,
+        fuse_act_quant: bool = False,
+        act_scale32: torch.Tensor | float | None = None,
+        per_row_act: bool = False,
+        act_rht_signs: torch.Tensor | None = None) -> torch.Tensor:
+    """y = x @ w, f32 out, for an unbatched 2-D packed weight.
+
+    * ``x`` dense (..., K): the W4A16 kernel (``kernels.ops.gemm_w4a16``).
+    * ``x`` dense + ``fuse_act_quant``: the W4A4 kernel with the row
+      quantizer fused into its prologue, one launch, bitwise
+      ``quantize_rows(x, pad_to=Kp)`` followed by ``qmm``.  ``act_scale32``
+      pins the activation scale; by default it is derived as the quantizer
+      would.  ``per_row_act`` switches to one scale per row, and
+      ``act_rht_signs`` (+-1 on the weight's stored Kp grid; needs
+      ``per_row_act``) applies the grouped RHT ahead of the quantizer: the
+      row scales are then read from the transformed rows, which takes one
+      ``fwht_rows`` launch beside the GEMM's, and the weight must carry the
+      same transform along K (``pack_projections(act_rht=True)``).
+    * ``x`` a 1-D-blocked QTensor of rows on the weight's Kp grid: the
+      packed W4A4 kernel, per row when ``x.scale32`` is an (M,) vector.
+
+    x is zero-padded onto the weight's stored K grid when that grid is wider
     than K (padded weight rows decode to exact zeros)."""
     from repro_torch.kernels import ops  # deferred: kernels import core
 
-    if isinstance(x, QTensor):
-        raise NotImplementedError(
-            "qmm with a packed activation is the W4A4 path "
-            "(ROADMAP §1 item 6)")
+    if fuse_act_quant and isinstance(x, QTensor):
+        raise ValueError("qmm: fuse_act_quant quantizes a DENSE activation "
+                         "in the kernel prologue; the operand is already "
+                         "packed — drop the flag or pass the dense rows")
     if not (isinstance(w, QTensor) and isinstance(w.layout, BlockLayout2D)
             and w.payload.ndim == 2):
         raise ValueError("qmm expects an unbatched 2-D-tiled QTensor "
                          "weight (slice stacked weights first)")
     k_logical, n_logical = w.shape
+    kp = 2 * w.payload.shape[0]
     if x.shape[-1] != k_logical:
         raise ValueError(f"qmm: x K={x.shape[-1]} vs weight K={k_logical}")
+
+    if isinstance(x, QTensor):
+        if not (isinstance(x.layout, BlockLayout1D)
+                and x.layout.axis in (-1, len(x.shape) - 1)
+                and x.layout.block == _G and x.payload.ndim == 2
+                and x.payload.shape[1] * 2 == kp):
+            raise ValueError("qmm: a packed activation must be (M, K) rows "
+                             "with g=16 blocks along K on the weight's "
+                             f"packed K grid ({kp})")
+        per_row = x.scale32.ndim == 1
+        return ops.gemm_w4a4(x.payload, x.scales, x.scale32, w.payload,
+                             w.scales, w.scale32, per_row=per_row,
+                             n_out=n_logical)
+
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k_logical)
-    kp = 2 * w.payload.shape[0]
+    if not fuse_act_quant:
+        if kp != k_logical:
+            x2 = F.pad(x2, (0, kp - k_logical))
+        y = ops.gemm_w4a16(x2, w.payload, w.scales, w.scale32,
+                           n_out=n_logical)
+        return y.reshape(*lead, n_logical)
+
+    if act_rht_signs is not None and not per_row_act:
+        raise ValueError("qmm: act_rht_signs requires per_row_act=True "
+                         "(the RHT lever rides the row-local scale "
+                         "contract)")
+    # rows cast to f32 before padding, where the quantizer casts them
+    x2p = x2.to(torch.float32)
     if kp != k_logical:
-        x2 = F.pad(x2, (0, kp - k_logical))
-    y = ops.gemm_w4a16(x2, w.payload, w.scales, w.scale32, n_out=n_logical)
+        x2p = F.pad(x2p, (0, kp - k_logical))
+    if act_rht_signs is not None and tuple(act_rht_signs.shape) != (kp,):
+        raise ValueError(f"qmm: act_rht_signs must live on the weight's "
+                         f"packed Kp grid ({kp},), got "
+                         f"{tuple(act_rht_signs.shape)}")
+    if act_scale32 is not None:
+        s32x = torch.as_tensor(act_scale32, dtype=torch.float32,
+                               device=x2p.device)
+    elif per_row_act:
+        # the row scale of the values the prologue quantizes: the rows
+        # after the RHT when signs ride along
+        xt = (ops.rht_rows(x2p, act_rht_signs)
+              if act_rht_signs is not None else x2p)
+        s32x = _act_scale32_like_quantize_rows(xt, per_row=True)
+    else:
+        s32x = _act_scale32_like_quantize_rows(x2)
+    y = ops.gemm_w4a4_fused(x2p, s32x, w.payload, w.scales, w.scale32,
+                            per_row=per_row_act, rht_signs=act_rht_signs,
+                            n_out=n_logical)
     return y.reshape(*lead, n_logical)

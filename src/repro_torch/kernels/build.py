@@ -3,16 +3,19 @@
 Each source under ``src/repro_torch/csrc/`` compiles on its own into a
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds).  Libraries land in ``build/torch_kernels/`` at the root of
-the checkout, keyed by a hash of the source and the flags, so an unchanged
-kernel is never rebuilt.  Nothing is compiled at import: a kernel module
-asks for its library the first time a CUDA tensor reaches it, and
-:func:`build_all` compiles every source in parallel, one ``nvcc`` each.
+the checkout, keyed by a hash of the source, the headers it includes from
+``csrc/`` and the flags, so an unchanged kernel is never rebuilt and an
+edited header rebuilds every source that includes it.  Nothing is compiled
+at import: a kernel module asks for its library the first time a CUDA
+tensor reaches it, and :func:`build_all` compiles every source in
+parallel, one ``nvcc`` each.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,12 +30,17 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # source stem -> extra nvcc flags.  The quantizer must be byte-exact with
-# the reference, so no multiply-add contraction there.
+# the reference, and the RHT and the W4A4 GEMM's fused prologue bitwise
+# equal to it and to their plain versions, so no multiply-add contraction
+# there.
 SOURCES = {
     "mixfp4_quant": ["-fmad=false"],
     "mixfp4_gemm_w4a16": [],
     "mixfp4_attn_decode": [],
+    "mixfp4_gemm_w4a4": ["-fmad=false"],
+    "fwht_rows": ["-fmad=false"],
 }
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -53,9 +61,20 @@ def _flags(name: str) -> list[str]:
     return _ARCH + _COMMON + SOURCES[name]
 
 
+def _sources(path: Path, seen: dict[Path, bytes]) -> dict[Path, bytes]:
+    """``path`` and every header it includes from ``csrc/``, transitively,
+    with their bytes."""
+    if path not in seen:
+        seen[path] = text = path.read_bytes()
+        for inc in _INCLUDE.findall(text):
+            _sources(path.parent / inc.decode(), seen)
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(_flags(name)).encode())
+    key = hashlib.sha256(" ".join(_flags(name)).encode())
+    for path, text in sorted(_sources(CSRC / f"{name}.cu", {}).items()):
+        key.update(path.name.encode() + b"\0" + text)
     return BUILD_DIR / f"{name}-{key.hexdigest()[:16]}.so"
 
 

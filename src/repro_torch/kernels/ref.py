@@ -1,15 +1,16 @@
-"""Plain-PyTorch oracles of the three kernels, built from ``repro_torch.core``
+"""Plain-PyTorch oracles of the kernels, built from ``repro_torch.core``
 (counterpart of ``repro/kernels/ref.py``).  They share no code with the
 kernels' plain versions beyond the core numerics."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core import qtensor
+from repro_torch.core import hadamard, qtensor
 from repro_torch.core.qtensor import BlockLayout1D, BlockLayout2D, QuantSpec
 
 __all__ = ["ref_quant_pack_rows", "ref_dequant_weight_kn", "ref_dequant_kv",
-           "ref_gemm_w4a16", "ref_attn_decode_packed"]
+           "ref_gemm_w4a16", "ref_gemm_w4a4", "ref_attn_decode_packed",
+           "ref_fwht_rows"]
 
 
 def ref_quant_pack_rows(x: torch.Tensor, method: str = "mixfp4",
@@ -37,6 +38,19 @@ def ref_gemm_w4a16(x, payload, scales, scale32,
     w = ref_dequant_weight_kn(payload, scales, scale32, block)
     return torch.matmul(x.to(torch.bfloat16).to(torch.float32),
                         w.to(torch.bfloat16).to(torch.float32))
+
+
+def ref_gemm_w4a4(xp, xs, xs32, payload, scales, scale32,
+                  block: tuple[int, int] = (16, 16),
+                  act_block: int = 16) -> torch.Tensor:
+    """Packed activation rows (scale32 ``xs32``, per tensor or (M,)) times
+    the packed weight: the W4A16 oracle on the dequantized rows."""
+    m, k = xp.shape[0], xp.shape[1] * 2
+    qx = qtensor.QTensor(xp, xs, torch.as_tensor(xs32, dtype=torch.float32,
+                                                 device=xp.device),
+                         method="mixfp4", layout=BlockLayout1D(-1, act_block),
+                         shape=(m, k), dtype="float32")
+    return ref_gemm_w4a16(qx.dequantize(), payload, scales, scale32, block)
 
 
 def ref_dequant_kv(payload, scales, scale32=1.0) -> torch.Tensor:
@@ -67,3 +81,8 @@ def ref_attn_decode_packed(q, k_payload, k_scales, v_payload, v_scales,
     scores = scores.masked_fill(~mask[:, None, None], -1e30)
     o = torch.einsum("bkgs,bskd->bkgd", torch.softmax(scores, dim=-1), v)
     return o.reshape(b, h, dh)
+
+
+def ref_fwht_rows(x: torch.Tensor, signs, group: int = 16) -> torch.Tensor:
+    """Grouped RHT along the last axis (rows independent)."""
+    return hadamard.rht(x, signs, dim=-1, group=group)

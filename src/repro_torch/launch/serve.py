@@ -1,10 +1,12 @@
 """Serving entry point: build an arch from seeded random weights and serve
 a few greedy requests through the continuous-batching engine (packed
-MixFP4 weights, W4A16 kernels, optional packed KV cache).
+MixFP4 weights, W4A16 or W4A4 kernels, optional packed KV cache).
 
 Usage (on the GPU; ``--device cpu`` runs the kernels' plain versions):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
       --kv-quant mixfp4 --requests 4 --new-tokens 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
+      --kv-quant mixfp4 --act-quant mixfp4 --act-rht
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
       --smoke --device cpu --kv-quant mixfp4
 """
@@ -38,9 +40,33 @@ def main(argv=None):
     ap.add_argument("--kv-quant", default=None, choices=["bf16", "mixfp4"],
                     help="hold the KV cache packed (mixfp4: 4.5 bits/value, "
                          "decode through the attention kernel); default bf16")
+    ap.add_argument("--act-quant", default=None,
+                    choices=["bf16", "mixfp4", "mixfp4-2pass",
+                             "mixfp4-2pass-rowscale", "mixfp4-qdq"],
+                    help="W4A4 serving: quantize the activations on the fly "
+                         "and run every projection with both operands on "
+                         "the wire format.  'mixfp4' fuses the per-row "
+                         "quantizer into the GEMM (one launch per "
+                         "projection); 'mixfp4-2pass-rowscale' is the "
+                         "quantize_rows(per_row=True) -> GEMM composition "
+                         "it is bitwise equal to; 'mixfp4-2pass' the legacy "
+                         "per-tensor composition; 'mixfp4-qdq' its "
+                         "dequantize-then-W4A16 oracle; default bf16 "
+                         "(W4A16)")
+    ap.add_argument("--act-rht", action="store_true",
+                    help="grouped random Hadamard transform on both W4A4 "
+                         "operands (weights rotated at pack time, "
+                         "activations before the quantizer, the same "
+                         "deterministic signs); requires --act-quant "
+                         "mixfp4 or mixfp4-2pass-rowscale")
     ap.add_argument("--prefill-buckets", default="auto",
                     choices=["auto", "pow2-64", "off"])
     args = ap.parse_args(argv)
+    if args.act_rht and args.act_quant not in ("mixfp4",
+                                               "mixfp4-2pass-rowscale"):
+        ap.error("--act-rht rotates both W4A4 operands and needs the "
+                 "per-row scales; use --act-quant mixfp4 or "
+                 "mixfp4-2pass-rowscale")
 
     device = resolve_device(args.device)
     cfg = (configs.smoke_config(args.arch) if args.smoke
@@ -50,13 +76,19 @@ def main(argv=None):
     print(f"[serve] {cfg.name}: {n_params / 1e6:.1f}M params on {device}")
     engine = ServeEngine(cfg, params, batch_size=args.batch,
                          max_len=args.max_len, method=args.quant,
-                         kv_quant=args.kv_quant,
+                         kv_quant=args.kv_quant, act_quant=args.act_quant,
+                         act_rht=args.act_rht,
                          prefill_buckets=args.prefill_buckets, device=device)
     del params  # projections now live only as packed QTensors
+    path = ("W4A16 kernel" if engine.act_quant == "bf16"
+            else "W4A4 kernels")
     print(f"[serve] projection weights held as packed QTensors: "
           f"{engine.packed_bytes / 2**20:.1f} MiB "
           f"({engine.compression:.2f}x smaller than bf16), served through "
-          f"qmm -> W4A16 kernel")
+          f"qmm -> {path}")
+    if engine.act_quant != "bf16":
+        print(f"[serve] W4A4: activations quantized on the fly "
+              f"(act_quant={engine.act_quant}, act_rht={engine.act_rht})")
     if engine.kv_quant == "mixfp4":
         print(f"[serve] packed MixFP4 KV cache: "
               f"{engine.kv_cache_bytes() / 2**20:.1f} MiB, decode reads it "

@@ -14,18 +14,20 @@ follow the reference exactly where they are easy to get wrong:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import qtensor
+from repro_torch.core import hadamard, qtensor
 from repro_torch.kernels import ops
 
-__all__ = ["ArchConfig", "PROJECTION_KEYS", "is_packable_projection",
-           "pack_projections", "padded_vocab", "decode_positions",
-           "rms_norm", "apply_rope", "qlinear", "attention", "KV_SCALE32",
+__all__ = ["ArchConfig", "ActQuant", "ACT_QUANT_MODES", "PROJECTION_KEYS",
+           "is_packable_projection", "pack_projections", "padded_vocab",
+           "decode_positions", "rms_norm", "apply_rope", "qlinear",
+           "rht_signs_on_grid", "attention", "KV_SCALE32",
            "quantize_kv_rows", "attn_apply", "mlp", "lm_logits"]
 
 
@@ -79,16 +81,33 @@ def is_packable_projection(key: str, leaf) -> bool:
 
 
 def pack_projections(params, method: str = "mixfp4",
-                     block: tuple[int, int] = (16, 16)):
+                     block: tuple[int, int] = (16, 16),
+                     act_rht: bool = False):
     """Replace every dense projection weight of a parameter tree (nested
     dicts and lists) with a packed 2-D-tiled QTensor.  Leaves that are
     already QTensors pass through unchanged.  Returns
     ``(packed_tree, packed_bytes, dense_bytes)`` over all projection leaves
-    (dense counted at bf16 rates)."""
+    (dense counted at bf16 rates).
+
+    ``act_rht=True`` rotates each dense projection along K with the
+    serve-time grouped RHT (``hadamard.serve_signs(K)``, group 16) before
+    quantizing, the transform ``qlinear`` applies to the activations, and
+    records the diagonals in a top-level ``"rht_signs"`` entry
+    ``{str(K): (K,) f32}``; every such K must be a multiple of 16."""
     spec = qtensor.QuantSpec(method, qtensor.BlockLayout2D(*block))
     stats = {"packed": 0, "dense": 0}
+    signs_used: dict[str, torch.Tensor] = {}
 
     def convert(w):
+        if not isinstance(w, qtensor.QTensor) and act_rht:
+            k = w.shape[0]
+            if k % 16:
+                raise ValueError(
+                    f"pack_projections(act_rht=True): projection K={k} "
+                    f"must be a multiple of the RHT group (16)")
+            signs = torch.from_numpy(hadamard.serve_signs(k)).to(w.device)
+            signs_used[str(k)] = signs
+            w = hadamard.rht(w, signs, dim=0, group=16)
         qt = w if isinstance(w, qtensor.QTensor) else qtensor.quantize(w,
                                                                        spec)
         stats["packed"] += qt.nbytes
@@ -108,6 +127,8 @@ def pack_projections(params, method: str = "mixfp4",
         return node
 
     packed = walk(params)
+    if signs_used:
+        packed["rht_signs"] = {**packed.get("rht_signs", {}), **signs_used}
     return packed, stats["packed"], stats["dense"]
 
 
@@ -141,16 +162,86 @@ def decode_positions(cache_len: torch.Tensor, b: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Quantized linear: packed weight -> W4A16 kernel
+# Quantized linear: packed weight -> W4A16 or W4A4 kernels
 # ---------------------------------------------------------------------------
-def qlinear(x: torch.Tensor, w) -> torch.Tensor:
+ACT_QUANT_MODES = ("bf16", "mixfp4", "mixfp4-2pass-rowscale", "mixfp4-2pass",
+                   "mixfp4-qdq")
+
+
+@dataclass(frozen=True)
+class ActQuant:
+    """How ``qlinear`` serves the activations of a packed projection (the
+    reference's ``Ctx.act_quant`` / ``Ctx.act_rht``):
+
+    * ``"bf16"``: dense bf16 rows, the W4A16 kernel;
+    * ``"mixfp4"``: W4A4 with per-row scales, the row quantizer fused into
+      the GEMM's prologue (one launch per projection);
+    * ``"mixfp4-2pass-rowscale"``: ``quantize_rows(per_row=True)`` then the
+      W4A4 kernel, bitwise the fused spelling;
+    * ``"mixfp4-2pass"``: the legacy per-tensor scale, two launches;
+    * ``"mixfp4-qdq"``: the same per-tensor wire bytes decoded back to rows
+      and served W4A16 (the debugging oracle of ``"mixfp4-2pass"``).
+
+    ``rht`` (with the two per-row spellings) applies the grouped RHT to the
+    activations ahead of the quantizer, against weights rotated at pack
+    time (``pack_projections(act_rht=True)``)."""
+
+    mode: str = "bf16"
+    rht: bool = False
+
+
+@functools.lru_cache(maxsize=None)
+def rht_signs_on_grid(k: int, kp: int, device: torch.device) -> torch.Tensor:
+    """The serve-time RHT diagonal of a weight rotated on its logical K
+    (``serve_signs(k)``), extended with +1 onto its stored grid ``kp``: the
+    padded lanes are zero in both operands and transform to zero.  (The
+    reference draws ``serve_signs(kp)`` from the padded length instead,
+    which is another diagonal whenever the storage is padded.)"""
+    signs = torch.ones(kp, dtype=torch.float32)
+    signs[:k] = torch.from_numpy(hadamard.serve_signs(k))
+    return signs.to(device)
+
+
+def qlinear(x: torch.Tensor, w, act: ActQuant = ActQuant()) -> torch.Tensor:
     """Every projection of the served path: a packed 2-D QTensor weight
-    through ``qmm`` (the W4A16 kernel), f32 out cast back to ``x.dtype``."""
+    through ``qmm``, f32 out cast back to ``x.dtype``; ``act`` picks the
+    activation format (see :class:`ActQuant`)."""
     if not isinstance(w, qtensor.QTensor):
         raise NotImplementedError(
             "dense (qdq-simulated) projections belong to the training "
             "slice (ROADMAP §1 item 10); serve packed weights")
-    return qtensor.qmm(x, w).to(x.dtype)
+    if act.mode == "bf16":
+        return qtensor.qmm(x, w).to(x.dtype)
+    if act.mode not in ACT_QUANT_MODES:
+        raise ValueError(f"unknown act_quant {act.mode!r} (expected one of "
+                         f"{ACT_QUANT_MODES})")
+    lead, k = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, k)
+    kp = 2 * w.payload.shape[0]
+    signs = rht_signs_on_grid(w.shape[0], kp, x.device) if act.rht else None
+    if act.mode == "mixfp4":
+        y = qtensor.qmm(x2, w, fuse_act_quant=True, per_row_act=True,
+                        act_rht_signs=signs)
+    else:
+        per_row = act.mode == "mixfp4-2pass-rowscale"
+        if signs is not None:
+            if not per_row:
+                raise ValueError("act_rht rides the per-row scales: use "
+                                 "'mixfp4' or 'mixfp4-2pass-rowscale'")
+            # the transform of the logical rows; quantize_rows zero-pads
+            # them onto Kp, as padding then transforming would
+            x2 = ops.rht_rows(x2.to(torch.float32), signs[:k])
+        qx = qtensor.quantize_rows(x2, pad_to=kp, per_row=per_row)
+        if act.mode != "mixfp4-qdq":
+            y = qtensor.qmm(qx, w)
+        else:
+            # decode the same wire bytes as value x block scale (exact in
+            # bf16) and serve them W4A16; the per-tensor scale multiplies
+            # the f32 output
+            xd = qx.replace(scale32=torch.ones_like(qx.scale32),
+                            dtype="float32").dequantize()
+            y = qtensor.qmm(xd, w) * qx.scale32
+    return y.reshape(*lead, y.shape[-1]).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -263,15 +354,16 @@ def _attn_packed_cached(q, knew, vnew, ck: qtensor.QTensor,
 
 
 def attn_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *, positions,
-               window: int, kv_cache, cache_len) -> torch.Tensor:
+               window: int, kv_cache, cache_len,
+               act: ActQuant = ActQuant()) -> torch.Tensor:
     """The attention sub-layer over a cache.  ``kv_cache`` is one layer's
     (K, V): packed QTensors (the fused packed path) or bf16 tensors; either
     is updated in place."""
     b, s, _ = x.shape
     dh = cfg.dh
-    q = qlinear(x, p["wq"]).reshape(b, s, cfg.n_heads, dh)
-    knew = qlinear(x, p["wk"]).reshape(b, s, cfg.n_kv_heads, dh)
-    vnew = qlinear(x, p["wv"]).reshape(b, s, cfg.n_kv_heads, dh)
+    q = qlinear(x, p["wq"], act).reshape(b, s, cfg.n_heads, dh)
+    knew = qlinear(x, p["wk"], act).reshape(b, s, cfg.n_kv_heads, dh)
+    vnew = qlinear(x, p["wv"], act).reshape(b, s, cfg.n_kv_heads, dh)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         knew = rms_norm(knew, p["k_norm"], cfg.norm_eps)
@@ -295,7 +387,7 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *, positions,
         o = attention(q, ck, cv, causal_offset=cl, window=window,
                       softcap=cfg.softcap_attn, chunk=cfg.attn_chunk,
                       kv_valid_len=cl + s)
-    return qlinear(o.reshape(b, s, cfg.n_heads * dh), p["wo"])
+    return qlinear(o.reshape(b, s, cfg.n_heads * dh), p["wo"], act)
 
 
 # ---------------------------------------------------------------------------
@@ -325,15 +417,16 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
-def mlp(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    up = qlinear(x, p["w_up"])
+def mlp(p: dict, x: torch.Tensor, cfg: ArchConfig,
+        act: ActQuant = ActQuant()) -> torch.Tensor:
+    up = qlinear(x, p["w_up"], act)
     if cfg.mlp_type == "swiglu":
-        h = silu(qlinear(x, p["w_gate"])) * up
+        h = silu(qlinear(x, p["w_gate"], act)) * up
     elif cfg.mlp_type == "geglu":
-        h = gelu_tanh(qlinear(x, p["w_gate"])) * up
+        h = gelu_tanh(qlinear(x, p["w_gate"], act)) * up
     else:
         h = gelu_tanh(up)
-    return qlinear(h, p["w_down"])
+    return qlinear(h, p["w_down"], act)
 
 
 def lm_logits(x: torch.Tensor, embed: torch.Tensor, softcap: float = 0.0,

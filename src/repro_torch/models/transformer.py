@@ -20,7 +20,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import qtensor
 from repro_torch.models import base
-from repro_torch.models.base import ArchConfig
+from repro_torch.models.base import ActQuant, ArchConfig
 
 __all__ = ["TransformerLM"]
 
@@ -157,7 +157,7 @@ class TransformerLM:
         return x
 
     def _run_layers_cached(self, params, x, cache, cache_len, positions,
-                           slot: int | None = None):
+                           act: ActQuant, slot: int | None = None):
         cfg = self.cfg
         windows = self.layer_windows()
         for li, lp in enumerate(params["layers"]):
@@ -166,23 +166,25 @@ class TransformerLM:
                   self._layer(cache["v"], li, slot))
             x = x + base.attn_apply(lp["attn"], h, cfg, positions=positions,
                                     window=int(windows[li]), kv_cache=kv,
-                                    cache_len=cache_len)
+                                    cache_len=cache_len, act=act)
             h = base.rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
-            x = x + base.mlp(lp["mlp"], h, cfg)
+            x = x + base.mlp(lp["mlp"], h, cfg, act)
         return base.rms_norm(x, params["ln_f"], cfg.norm_eps)
 
     def prefill_slot(self, params, tokens: torch.Tensor, cache: dict,
-                     slot: int, true_len: int | None = None):
+                     slot: int, true_len: int | None = None,
+                     act: ActQuant = ActQuant()):
         """Run a whole prompt (1, P) into cache slot ``slot`` in one pass.
         ``true_len`` supports prompt bucketing: ``tokens`` is padded up the
         ladder and the logits come from position ``true_len - 1``; padded
         rows are causally invisible to the real ones and masked at decode
-        until overwritten.  Returns (logits (1, V), cache)."""
+        until overwritten.  ``act`` is the activation format of every
+        projection.  Returns (logits (1, V), cache)."""
         cfg = self.cfg
         p_len = tokens.shape[1]
         x = self._embed(params, tokens)
         positions = torch.arange(p_len, device=x.device)[None, :]
-        x = self._run_layers_cached(params, x, cache, 0, positions,
+        x = self._run_layers_cached(params, x, cache, 0, positions, act,
                                     slot=slot)
         last = p_len if true_len is None else int(true_len)
         logits = base.lm_logits(x[:, last - 1], params["embed"],
@@ -190,13 +192,15 @@ class TransformerLM:
         return logits, cache
 
     def decode_step(self, params, tokens: torch.Tensor, cache: dict,
-                    cache_len: torch.Tensor):
+                    cache_len: torch.Tensor, act: ActQuant = ActQuant()):
         """One token for every sequence: tokens (B,), cache_len (B,) per
-        sequence (or a scalar).  Returns (logits (B, V), cache)."""
+        sequence (or a scalar).  ``act`` is the activation format of every
+        projection.  Returns (logits (B, V), cache)."""
         cfg = self.cfg
         x = self._embed(params, tokens[:, None])
         positions = base.decode_positions(cache_len, x.shape[0])
-        x = self._run_layers_cached(params, x, cache, cache_len, positions)
+        x = self._run_layers_cached(params, x, cache, cache_len, positions,
+                                    act)
         logits = base.lm_logits(x[:, 0], params["embed"], cfg.softcap_final,
                                 vocab=cfg.vocab)
         return logits, cache

@@ -3,18 +3,21 @@ an optional packed MixFP4 KV cache.
 
 Counterpart of ``repro/serving/engine.py``, fixed-slot path: projection
 weights are held only as packed QTensors and every projection runs the
-W4A16 kernel; with ``kv_quant="mixfp4"`` every decode step quantizes the
-new K/V rows with the row-quantizer kernel, scatters their bytes into the
-cache in place and reads the cache with the decode-attention kernel.
+W4A16 kernel, or with ``act_quant`` one of the W4A4 paths (``"mixfp4"``:
+per-row activation quantization fused into the GEMM; ``act_rht=True``
+adds the serve-time grouped RHT on both operands); with
+``kv_quant="mixfp4"`` every decode step quantizes the new K/V rows with
+the row-quantizer kernel, scatters their bytes into the cache in place and
+reads the cache with the decode-attention kernel.
 Admissions prefill the whole prompt in one pass (``prefill_slot``); with
 ``prefill_buckets`` (the default ``"auto"``) the prompt pads up the
 pow-2/64-step length ladder, which leaves the emitted stream bitwise
 unchanged.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): W4A4 activations, the paged KV pool, chunked prefill, the request
-lifecycle (faults, deadlines, journal, watchdog, metrics), and mesh
-serving.
+item): the paged KV pool, chunked prefill, the request lifecycle (faults,
+deadlines, journal, watchdog, metrics, the fused -> 2-pass degradation
+rung), and mesh serving.
 """
 from __future__ import annotations
 
@@ -24,9 +27,10 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import qtensor
+from repro_torch.core import hadamard, qtensor
 from repro_torch.models import build_model
-from repro_torch.models.base import ArchConfig, pack_projections
+from repro_torch.models.base import (ACT_QUANT_MODES, ActQuant, ArchConfig,
+                                     pack_projections)
 
 __all__ = ["Request", "ServeEngine"]
 
@@ -35,8 +39,6 @@ REASON_NAN_LOGITS = "nan_logits"
 
 # engine argument -> the ROADMAP item that ports it
 _NOT_PORTED = {
-    "act_quant": "§1 item 6 (W4A4 serving)",
-    "act_rht": "§1 item 6 (W4A4 serving)",
     "kv_pool": "§1 item 7 (paged and chunked serving)",
     "prefill_chunk": "§1 item 7 (paged and chunked serving)",
     "faults": "§1 item 9 (serving lifecycle)",
@@ -69,6 +71,72 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
+def _validate_act(act_quant, act_rht: bool, pack_weights: bool):
+    """The reference engine's checks of ``act_quant`` and ``act_rht``, with
+    its messages."""
+    if act_quant not in (None, *ACT_QUANT_MODES):
+        raise ValueError(
+            f"unknown act_quant {act_quant!r} (expected None, 'bf16', "
+            "'mixfp4' (fused per-row quantize+GEMM), "
+            "'mixfp4-2pass-rowscale' (its two-dispatch bitwise oracle), "
+            "'mixfp4-2pass' (the legacy per-tensor composition), or "
+            "the 'mixfp4-qdq' debugging oracle)")
+    if act_quant not in (None, "bf16") and not pack_weights:
+        raise ValueError(
+            "act_quant='mixfp4' is the W4A4 path — both GEMM operands "
+            "on the wire format — which needs packed weights; drop "
+            "pack_weights=False")
+    if act_rht:
+        if act_quant not in ("mixfp4", "mixfp4-2pass-rowscale"):
+            raise ValueError(
+                "act_rht=True rotates activations AND packed weights "
+                "with a shared grouped Hadamard, which only the "
+                "per-row W4A4 modes consume; it requires "
+                "act_quant='mixfp4' or 'mixfp4-2pass-rowscale' "
+                f"(got {act_quant!r})")
+        if not pack_weights:
+            raise ValueError(
+                "act_rht=True transforms the weights at pack time "
+                "(pack_projections(act_rht=True)); drop "
+                "pack_weights=False")
+
+
+def _projections(tree):
+    """Every packed projection leaf of a parameter tree."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _projections(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _projections(v)
+    elif isinstance(tree, qtensor.QTensor):
+        yield tree
+
+
+def _check_rht_signs(params: dict, act_rht: bool):
+    """Rotated weights and rotated activations go together: with
+    ``act_rht`` every projection's logical K must carry its
+    ``serve_signs(K)`` diagonal in ``params["rht_signs"]`` (the record
+    ``pack_projections(act_rht=True)`` writes, in the port or the
+    reference); without it the tree must carry none."""
+    recorded = params.get("rht_signs", {})
+    if not act_rht:
+        if recorded:
+            raise ValueError(
+                "these weights were rotated at pack time (the tree has "
+                "'rht_signs'); serve them with act_rht=True")
+        return
+    for k in {w.shape[0] for w in _projections(params["layers"])}:
+        signs = recorded.get(str(k))
+        if signs is None or not np.array_equal(
+                np.asarray(signs.cpu()), hadamard.serve_signs(k)):
+            raise ValueError(
+                f"act_rht=True needs projections rotated at pack time with "
+                f"serve_signs({k}); the tree's 'rht_signs' has "
+                f"{'no' if signs is None else 'another'} entry for K={k} "
+                "(pack dense weights, or bytes packed with act_rht=True)")
+
+
 class ServeEngine:
     """Greedy continuous-batching decoder for the dense transformer."""
 
@@ -83,8 +151,7 @@ class ServeEngine:
                  hung_step_budget_ms: float | None = None,
                  deadline_ms: float | None = None,
                  ttft_budget_ms: float | None = None, mesh=None):
-        given = {"act_quant": act_quant not in (None, "bf16"),
-                 "act_rht": act_rht, "kv_pool": kv_pool is not None,
+        given = {"kv_pool": kv_pool is not None,
                  "prefill_chunk": prefill_chunk is not None,
                  "faults": faults is not None,
                  "journal_dir": journal_dir is not None,
@@ -97,13 +164,14 @@ class ServeEngine:
                 raise NotImplementedError(
                     f"ServeEngine({arg}=...) is not ported yet "
                     f"(ROADMAP {_NOT_PORTED[arg]})")
+        if kv_quant not in (None, "bf16", "mixfp4"):
+            raise ValueError(f"unknown kv_quant {kv_quant!r} "
+                             "(expected None, 'bf16' or 'mixfp4')")
+        _validate_act(act_quant, act_rht, pack_weights)
         if not pack_weights:
             raise NotImplementedError(
                 "dense qdq-simulated serving belongs to the training slice "
                 "(ROADMAP §1 item 10); serve packed weights")
-        if kv_quant not in (None, "bf16", "mixfp4"):
-            raise ValueError(f"unknown kv_quant {kv_quant!r} "
-                             "(expected None, 'bf16' or 'mixfp4')")
         if prefill_buckets not in (None, "off", "auto", "pow2-64"):
             raise ValueError(f"unknown prefill_buckets {prefill_buckets!r}")
         self.device = resolve_device(device)
@@ -112,10 +180,15 @@ class ServeEngine:
         self.batch_size = batch_size
         self.max_len = max_len
         self.kv_quant = kv_quant or "bf16"
+        self.act_quant = act_quant or "bf16"
+        self.act_rht = act_rht
+        self.act = ActQuant(self.act_quant, act_rht)
         # projections become packed QTensors (leaves already packed, e.g.
-        # bytes carried over from another engine, pass through unchanged)
+        # bytes carried over from another engine, pass through unchanged);
+        # with act_rht the dense ones are rotated along K first
         self.params, self.packed_bytes, self.dense_bytes = pack_projections(
-            _to_device(params, self.device), method=method)
+            _to_device(params, self.device), method=method, act_rht=act_rht)
+        _check_rht_signs(self.params, act_rht)
         self.compression = (self.dense_bytes / self.packed_bytes
                             if self.packed_bytes else 1.0)
         self.cache = self.model.init_cache(
@@ -187,7 +260,7 @@ class ServeEngine:
                 toks = np.pad(toks, (0, pb - s_len))
         tokens = torch.as_tensor(toks[None, :], device=self.device)
         logits, self.cache = self.model.prefill_slot(
-            self.params, tokens, self.cache, i, true_len=s_len)
+            self.params, tokens, self.cache, i, true_len=s_len, act=self.act)
         self.lengths[i] = s_len
         self.admissions += 1
         finite, nxt = torch.stack([torch.isfinite(logits[0]).all().long(),
@@ -231,7 +304,8 @@ class ServeEngine:
         lens[active] = self.lengths[active]
         logits, self.cache = self.model.decode_step(
             self.params, torch.as_tensor(toks, device=self.device),
-            self.cache, torch.as_tensor(lens, device=self.device))
+            self.cache, torch.as_tensor(lens, device=self.device),
+            act=self.act)
         next_toks = torch.argmax(logits, dim=-1).cpu().numpy()
         finite = torch.isfinite(logits).all(dim=-1).cpu().numpy()
         self.decode_steps += 1

@@ -91,6 +91,15 @@ def test_launch_serve_runs_on_cpu_when_asked(capsys):
     out = capsys.readouterr().out
     assert "3 requests, 9 tokens" in out
     assert "packed MixFP4 KV cache" in out
+    serve.main(["--smoke", "--device", "cpu", "--kv-quant", "mixfp4",
+                "--act-quant", "mixfp4", "--act-rht", "--requests", "3",
+                "--batch", "2", "--new-tokens", "3", "--max-len", "32"])
+    out = capsys.readouterr().out
+    assert "3 requests, 9 tokens" in out
+    assert "qmm -> W4A4 kernels" in out
+    assert "act_quant=mixfp4, act_rht=True" in out
+    with pytest.raises(SystemExit):
+        serve.main(["--smoke", "--device", "cpu", "--act-rht"])
 
 
 def test_kernel_wrappers_reject_other_devices():
@@ -103,3 +112,21 @@ def test_kernel_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         ops.gemm_w4a16(x, w.payload.to("meta"), w.scales.to("meta"),
                        torch.ones((), device="meta"))
+
+
+def test_build_key_follows_included_headers(tmp_path, monkeypatch):
+    """A cached kernel library is keyed on its source and every header the
+    source includes: editing the shared block-math header rebuilds exactly
+    the sources that include it."""
+    import shutil
+    from repro_torch.kernels import build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {name: build._target(name) for name in build.SOURCES}
+    header = csrc / "mixfp4_block_math.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: build._target(name) for name in build.SOURCES}
+    assert {n for n in build.SOURCES if before[n] != after[n]} == {
+        "mixfp4_quant", "mixfp4_gemm_w4a16", "mixfp4_gemm_w4a4",
+        "fwht_rows"}
