@@ -10,17 +10,28 @@ Phases (any failed check raises, so the script exits non-zero):
    gemma2-2b shapes, and time kernel, plain version and one library call;
    the fused W4A4 kernel must also equal the quantizer followed by the
    packed W4A4 kernel bitwise;
-3. serve six greedy requests through ``ServeEngine`` for gemma2-2b at full
-   width (26 layers, packed MixFP4 weights from seeded random values,
-   packed MixFP4 KV cache) on the W4A16 path, check that every launch
-   counter equals what the path implies, then trace five decode steps at
-   ~1024 tokens of context with ``torch.profiler`` (device time by kernel,
-   device-busy share);
-3b. the same on the W4A4 path (``act_quant="mixfp4", act_rht=True``);
+   the paged attention kernel must equal the fixed one bitwise, and the
+   fixed one its output digest from before the two shared a template;
+3. serve six greedy requests (four share a 1000-token prefix; one prompt
+   of 4500 tokens) through ``ServeEngine`` for gemma2-2b at full width
+   (26 layers, packed MixFP4 weights from seeded random values, packed
+   MixFP4 KV cache) on the W4A16 path with whole-prompt prefill, check
+   that every launch counter equals what the path implies, then trace five
+   decode steps at ~1024 tokens of context with ``torch.profiler`` (device
+   time by kernel, device-busy share);
+3c. the same requests and weights through the paged pool (2049 pages of
+   16 rows, prefix caching) with 512-token chunked prefill: the streams
+   must equal phase 3's token for token, with prefix hits and COW copies;
+   then fixed-slot and paged decode steps timed in alternating turns;
+3b. the phase-3 requests on the W4A4 path (``act_quant="mixfp4",
+   act_rht=True``);
 4. run gemma2-2b at full width cut to 2 layers on the card and on the CPU
    (plain versions) from the same packed bytes, and compare the logits;
 4b. the same on the W4A4 + RHT path, where the card's fused and two-pass
-   (``"mixfp4-2pass-rowscale"``) logits must also be bitwise equal.
+   (``"mixfp4-2pass-rowscale"``) logits must also be bitwise equal;
+4c. at the same width and depth, a prompt prefilled whole into a fixed
+   slot and in chunks after a prefix hit into the pool must write the
+   same K/V bytes and give the same next-step logits, bitwise.
 
 Each kernel's launch count comes from the path run that drives it, with
 the counts set to 0 just before that run.  The line before the last is a
@@ -263,6 +274,140 @@ def check_attn(dev, flush) -> dict:
             "bound_by": b_by, "library_ms": lib_ms}
 
 
+# sha256 of the fixed-slot attention kernel's output bytes on
+# paged_attn_inputs() (softcap 50), per window, as the kernel computed them
+# before it became a template over its row address: the template must
+# leave it bitwise unchanged.  The bytes of an expf/tanhf kernel belong to
+# the toolkit that compiled it; these were recorded under FIXED_ATTN_NVCC
+# (PERF.md §6 names the run), and another toolkit needs its own record.
+FIXED_ATTN_NVCC = "Cuda compilation tools, release 12.9, V12.9.86"
+FIXED_ATTN_SHA256 = {
+    4096: "86b25d2ef387be3f6d8b5872c069d7a0d71551f797d282435a0fad0a796891bc",
+    0: "717a83f76cca0c717b88048c2318ed11cc26302f08664cddb95fee5bd0d0f084"}
+PAGE_LEN = 16
+
+
+def paged_attn_inputs(dev):
+    """The phase-2 paged-attention case, from numpy with a fixed seed:
+    q (4, 8, 256); a fixed packed cache of B=4 x 8192 rows x 4 kv heads
+    (rows quantized on the card under the pinned KV scale); its rows
+    scattered over a 2049-page pool in a random permutation, with junk
+    wire bytes in the trash page 0; the block tables; the lengths."""
+    from repro_torch.models.base import quantize_kv_rows
+
+    b, s, hkv, h, dh = 4, 8192, 4, 8, 256
+    rng = np.random.RandomState(7)
+    q = torch.tensor(rng.randn(b, h, dh), dtype=torch.float32, device=dev)
+    fixed = []
+    for _ in range(2):                                  # K, then V
+        rows = torch.tensor(rng.randn(b, s, hkv, dh), dtype=torch.float32,
+                            device=dev)
+        fixed += list(quantize_kv_rows(rows))
+    lengths = torch.tensor([s, *rng.randint(1, s + 1, b - 1)],
+                           dtype=torch.int32, device=dev)
+    mp = s // PAGE_LEN
+    bt = torch.tensor(1 + rng.permutation(b * mp).reshape(b, mp),
+                      dtype=torch.int32, device=dev)
+    junk = quantize_kv_rows(torch.tensor(
+        40.0 * rng.randn(PAGE_LEN, hkv, dh), dtype=torch.float32,
+        device=dev))
+    slabs = []
+    flat = bt.reshape(-1).long()
+    for a, j in zip(fixed, (*junk, *junk)):
+        slab = torch.empty((1 + b * mp, PAGE_LEN, *a.shape[2:]),
+                           dtype=a.dtype, device=dev)
+        slab[0] = j
+        slab[flat] = a.reshape(b * mp, PAGE_LEN, *a.shape[2:])
+        slabs.append(slab)
+    return q, fixed, lengths, slabs, bt
+
+
+def nvcc_release() -> str:
+    """The release line of the nvcc that builds the kernels."""
+    from repro_torch.kernels import build
+
+    out = subprocess.run([build.nvcc_path(), "--version"],
+                         capture_output=True, text=True, check=True).stdout
+    return next(line.strip() for line in out.splitlines()
+                if "release" in line)
+
+
+def check_attn_paged(dev, flush) -> dict:
+    import hashlib
+
+    from repro_torch.kernels import mixfp4_attn as A
+
+    q, fixed, lengths, slabs, bt = paged_attn_inputs(dev)
+    b, s = fixed[0].shape[:2]
+    hkv, dh, h = fixed[0].shape[2], q.shape[2], q.shape[1]
+    worst = 0.0
+    nvcc = nvcc_release()
+    for window in (4096, 0):
+        kw = {"window": window, "softcap": 50.0}
+        o = A.mixfp4_attn_decode_paged(q, *slabs, bt, lengths, **kw)
+        of = A.mixfp4_attn_decode(q, *fixed, lengths, **kw)
+        op = A.attn_decode_paged_plain(q, *slabs, bt, lengths, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(o, of):
+            raise AssertionError(f"paged attention window={window}: not "
+                                 "bitwise the fixed kernel")
+        digest = hashlib.sha256(of.cpu().numpy().tobytes()).hexdigest()
+        log(f"[attn-paged] fixed kernel output sha256, window {window}: "
+            f"{digest} (built by nvcc {nvcc!r})")
+        if digest != FIXED_ATTN_SHA256[window]:
+            raise AssertionError(
+                f"fixed attention window={window}: output digest {digest} "
+                f"is not the one recorded under nvcc {FIXED_ATTN_NVCC!r}"
+                + ("" if nvcc == FIXED_ATTN_NVCC else
+                   f"; this build's nvcc is {nvcc!r}: record the parent "
+                   "kernel's digest for it"))
+        err = float((o - op).abs().max())
+        worst = max(worst, err)
+        if not err <= 1e-4:
+            raise AssertionError(f"paged attention window={window}: error "
+                                 f"{err}")
+    log(f"[attn-paged] B=4, 8192 logical rows over a 2049-page pool "
+        f"(page_len 16, permuted, junk in page 0), lengths "
+        f"{lengths.tolist()}, window 4096 and 0, softcap 50: equal to the "
+        f"fixed kernel bitwise; fixed kernel output bitwise its recorded "
+        f"digest; max abs error vs plain {worst:.3e} (tolerance 1e-4)")
+    kw = {"window": 0, "softcap": 50.0}
+    ms = bench(lambda: A.mixfp4_attn_decode_paged(q, *slabs, bt, lengths,
+                                                  **kw), 20, flush)
+    fixed_ms = bench(lambda: A.mixfp4_attn_decode(q, *fixed, lengths, **kw),
+                     20, flush)
+    plain_ms = bench(lambda: A.attn_decode_paged_plain(q, *slabs, bt,
+                                                       lengths, **kw), 5,
+                     flush)
+    # yardstick: SDPA over the gathered dequantized cache (no softcap)
+    kd = A.dequant_kv(A.gather_pages(slabs[0], bt),
+                      A.gather_pages(slabs[1], bt), 1.0).transpose(1, 2)
+    vd = A.dequant_kv(A.gather_pages(slabs[2], bt),
+                      A.gather_pages(slabs[3], bt), 1.0).transpose(1, 2)
+    mask = (torch.arange(s, device=dev)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    lib_ms = bench(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], kd, vd, attn_mask=mask, enable_gqa=True), 20, flush)
+    rows = int(lengths.clamp(max=s).sum())
+    n_bytes = (2 * rows * hkv * (dh // 2 + dh // 16) + b * h * dh * 8
+               + b * 4 + bt.numel() * 4)
+    n_ops = 4 * rows * h * dh
+    b_ms, b_by = bound(n_bytes, n_ops, F32_OPS_PER_S)
+    log(f"[attn-paged] global layer: kernel {ms:.4f} ms (the fixed kernel "
+        f"on the same rows {fixed_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+        f"SDPA on the gathered dequantized f32 cache (no softcap) "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return {"name": "mixfp4_attn_decode_paged", "route": "cuda",
+            "source": "src/repro_torch/csrc/mixfp4_attn_decode.cu",
+            "replaces": "src/repro/kernels/mixfp4_attn.py:253",
+            "max_abs_err": worst, "tolerance": "bitwise the fixed kernel; "
+            "1e-4 absolute vs plain",
+            "shape": f"B=4, 8192 logical rows, 2049 pages of 16, lengths "
+                     f"{lengths.tolist()}, window 0",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms}
+
+
 def _rows_like_activations(m: int, k: int, dev, gen) -> torch.Tensor:
     """Rows with a spread of magnitudes (and, from M = 4 on, one all-zero
     row, whose scale is the guard value 1), as activations have."""
@@ -470,36 +615,63 @@ def check_fwht(dev, flush) -> dict:
 # ---------------------------------------------------------------------------
 # phase 3: the served path at full width
 # ---------------------------------------------------------------------------
-def serve_path(dev, seed: int, **act) -> dict:
-    """Serve six greedy requests at full width and depth with the engine
-    options ``act`` (the W4A16 path without them); check every launch
-    counter against what the path implies; trace a decode window."""
+def shared_prefix_requests(vocab: int, seed: int):
+    """Phase 3's six requests, 32 new tokens each, in arrival order: a
+    seeded 1000-token prefix (62.5 pages of 16, so a hit takes the
+    copy-on-write path) with suffixes of 40-250 tokens for four of them,
+    one unrelated 300-token prompt and one of 4500 tokens (decode crosses
+    the 4096 window).  On a four-slot engine the first two shared-prefix
+    requests arrive together; the last two arrive once a slot frees, after
+    the first one's prefill completed."""
+    from repro_torch.serving.engine import Request
+
+    rng = np.random.RandomState(seed)
+    prefix = rng.randint(0, vocab, 1000)
+    suffix = [int(v) for v in rng.randint(40, 251, 4)]
+    prompts = [np.concatenate([prefix, rng.randint(0, vocab, suffix[0])]),
+               rng.randint(0, vocab, 300),
+               np.concatenate([prefix, rng.randint(0, vocab, suffix[1])]),
+               rng.randint(0, vocab, 4500),
+               np.concatenate([prefix, rng.randint(0, vocab, suffix[2])]),
+               np.concatenate([prefix, rng.randint(0, vocab, suffix[3])])]
+    return [Request(uid=i, prompt=p.astype(np.int32), max_new_tokens=32)
+            for i, p in enumerate(prompts)]
+
+
+LONG_UID = 3                       # the 4500-token request
+
+
+def serve_path(dev, seed: int, tag: str, params=None, **kw) -> dict:
+    """Serve phase 3's six greedy requests at full width and depth with the
+    engine options ``kw`` (the fixed-slot W4A16 path without them), from
+    seeded random weights or from ``params`` (packed leaves pass through);
+    check every launch counter against what the path implies; trace a
+    decode window.  Returns the launch counts, the streams, the engine's
+    packed parameters and the step times."""
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
-    from repro_torch.serving.engine import Request, ServeEngine
+    from repro_torch.serving.engine import ServeEngine
 
     cfg = configs.config("gemma2-2b")
     t0 = time.perf_counter()
-    params = build_model(cfg).init(seed, device=dev)
+    if params is None:
+        params = build_model(cfg).init(seed, device=dev)
     engine = ServeEngine(cfg, params, batch_size=4, max_len=8192,
-                         kv_quant="mixfp4", device=dev, **act)
+                         kv_quant="mixfp4", device=dev, **kw)
     del params
     torch.cuda.synchronize()
-    tag = "[serve]" if not act else "[serve-w4a4]"
     log(f"{tag} gemma2-2b, {cfg.n_layers} layers at full width, act_quant="
-        f"{engine.act_quant}, act_rht={engine.act_rht}: init + pack "
-        f"{time.perf_counter() - t0:.1f} s; packed projection bytes "
+        f"{engine.act_quant}, act_rht={engine.act_rht}, kv_pool="
+        f"{kw.get('kv_pool')}, prefill_chunk={engine.prefill_chunk}: init + "
+        f"pack {time.perf_counter() - t0:.1f} s; packed projection bytes "
         f"{engine.packed_bytes} ({engine.compression:.2f}x below bf16); "
         f"packed KV cache bytes {engine.kv_cache_bytes()} "
         f"(B=4, max_len=8192)")
-    rng = np.random.RandomState(seed)
-    lens = [int(v) for v in rng.randint(9, 301, 5)] + [4500]
-    reqs = [Request(uid=i, prompt=rng.randint(0, cfg.vocab, n).astype(
-        np.int32), max_new_tokens=32) for i, n in enumerate(lens)]
+    reqs = shared_prefix_requests(cfg.vocab, seed)
     pending = list(reqs)
     ops.reset_launch_counts()
-    step_ms, prefill_ms, n_tok = [], [], 0
+    step_ms, admit_ms, long_ms, n_tok = [], {}, [], 0
     t_start = time.perf_counter()
     while pending or engine.has_work():
         while pending:
@@ -507,17 +679,21 @@ def serve_path(dev, seed: int, **act) -> dict:
             if not engine.add_request(pending[0]):
                 break
             torch.cuda.synchronize()
-            prefill_ms.append((time.perf_counter() - t) * 1e3)
-            pending.pop(0)
+            admit_ms[pending.pop(0).uid] = (time.perf_counter() - t) * 1e3
+        head = None if engine.scheduler is None else engine.scheduler.head()
         t = time.perf_counter()
         steps_before = engine.decode_steps
         n_tok += len(engine.step())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        if head is not None and head.uid == LONG_UID:
+            long_ms.append(ms)
         if engine.decode_steps > steps_before:
-            step_ms.append((time.perf_counter() - t) * 1e3)
-    torch.cuda.synchronize()
+            step_ms.append(ms)
     wall = time.perf_counter() - t_start
     counts = ops.launch_counts()
-    n_pre, n_dec, n_l = engine.admissions, engine.decode_steps, cfg.n_layers
+    n_pre, n_dec, n_l = (engine.prefill_dispatches, engine.decode_steps,
+                         cfg.n_layers)
     per_pass = {name: 0 for name in counts}      # launches per model pass
     per_pass["mixfp4_quant_rows"] = 2 * n_l      # the new K and V rows
     if engine.act_quant == "bf16":
@@ -526,7 +702,9 @@ def serve_path(dev, seed: int, **act) -> dict:
         per_pass["mixfp4_gemm_w4a4_fused"] = 7 * n_l
         per_pass["fwht_rows"] = 7 * n_l          # the per-row scales
     want = {name: c * (n_pre + n_dec) for name, c in per_pass.items()}
-    want["mixfp4_attn_decode"] = n_l * n_dec     # decode passes only
+    attn = ("mixfp4_attn_decode" if engine.kv_pool is None
+            else "mixfp4_attn_decode_paged")
+    want[attn] = n_l * n_dec                     # decode passes only
     for r in reqs:
         if len(r.generated) != 32 or r.finish_reason != "max_new_tokens":
             raise AssertionError(f"request {r.uid} (prompt {len(r.prompt)}): "
@@ -534,36 +712,61 @@ def serve_path(dev, seed: int, **act) -> dict:
                                  f"{r.finish_reason}")
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
-    log(f"{tag} prompts {lens}, 32 new tokens each: {n_tok} tokens in "
-        f"{wall:.2f} s ({n_tok / wall:.1f} tok/s); {n_pre} prefills "
-        f"(median {statistics.median(prefill_ms):.1f} ms, max "
-        f"{max(prefill_ms):.1f} ms), {n_dec} decode steps (median "
-        f"{statistics.median(step_ms):.2f} ms); every logit row, prefill "
-        f"and decode, finite")
+    if engine.scheduler is None:
+        prefill = (f"{n_pre} whole-prompt prefills (median "
+                   f"{statistics.median(admit_ms.values()):.1f} ms, the "
+                   f"4500-token one {admit_ms[LONG_UID]:.1f} ms)")
+    else:
+        prefill = (f"{n_pre} prefill chunks of <= {engine.prefill_chunk} "
+                   f"tokens, at most "
+                   f"{engine.scheduler.max_prefill_tokens_per_step()} "
+                   f"prompt tokens in one step (scheduler ledger); steps "
+                   f"running the 4500-token prompt's {len(long_ms)} chunks: "
+                   f"median {statistics.median(long_ms):.1f} ms, max "
+                   f"{max(long_ms):.1f} ms")
+    log(f"{tag} prompts {[len(r.prompt) for r in reqs]}, 32 new tokens "
+        f"each: {n_tok} tokens in {wall:.2f} s ({n_tok / wall:.1f} tok/s); "
+        f"{prefill}; {n_dec} decode steps (median "
+        f"{statistics.median(step_ms):.2f} ms); every logit row finite")
     log(f"{tag} launches {counts}; per prefill pass "
         f"{ {k: v for k, v in per_pass.items() if v} }, per decode pass the "
-        f"same plus {n_l} attention launches")
+        f"same plus {n_l} {attn} launches")
+    if engine.kv_pool is not None:
+        rep = engine.pool_report()
+        log(f"{tag} pool {rep}; peak concurrency {engine.max_concurrent}")
+        if not (rep["prefix_hits"] > 0 and rep["cow_copies"] > 0
+                and rep["pages_active"] == 0):
+            raise AssertionError(f"pool report {rep}: expected prefix hits, "
+                                 "COW copies and no active page at the end")
     profile_decode(engine, seed, tag)
-    return counts
+    return {"counts": counts, "params": engine.params,
+            "streams": {r.uid: list(r.generated) for r in reqs}}
 
 
 def profile_decode(engine, seed: int, tag: str):
     """Fill every slot with a 1024-token prompt, then trace five decode
     steps with ``torch.profiler``: device time by kernel, and the share of
-    the traced window in which the device was busy."""
+    the traced window in which the device was busy.  A chunked engine
+    first runs every prefill chunk, so the window holds decode only."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.engine import Request
 
     steps = 5
+    chunk_steps = (0 if engine.scheduler is None
+                   else engine.batch_size * -(-1024 // engine.prefill_chunk))
     rng = np.random.RandomState(seed + 2)
     for i in range(engine.batch_size):
-        engine.add_request(Request(
-            uid=100 + i, prompt=rng.randint(0, engine.cfg.vocab, 1024).astype(
-                np.int32), max_new_tokens=steps + 8))
-    for _ in range(3):                     # first-token emission + warm-up
+        if not engine.add_request(Request(
+                uid=100 + i, prompt=rng.randint(
+                    0, engine.cfg.vocab, 1024).astype(np.int32),
+                max_new_tokens=steps + 8 + chunk_steps)):
+            raise AssertionError("profile requests were not admitted")
+    for _ in range(3 + chunk_steps):       # prefill, first tokens, warm-up
         engine.step()
+    if engine.scheduler is not None and engine.scheduler.pending_jobs:
+        raise AssertionError("prefill chunks left in the traced window")
     torch.cuda.synchronize()
     step_ms = []
     with profile(activities=[ProfilerActivity.CPU,
@@ -594,6 +797,43 @@ def profile_decode(engine, seed: int, tag: str):
                                     key=lambda kv: -kv[1][0])[:12]:
         log(f"[profile] {ms:9.4f} ms/step {calls:5d} launches/step  "
             f"{name[:90]}")
+
+
+def decode_step_ab(dev, params, seed: int, rounds: int = 8):
+    """Host-clock decode step time of the fixed-slot and the paged engine
+    (each B = 4, four 1024-token prompts) in alternating turns (fixed,
+    paged, paged, fixed), in one process on one card: the phases' own
+    medians run minutes apart on a shared host."""
+    from repro_torch import configs
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    cfg = configs.config("gemma2-2b")
+    engines = {}
+    for name, kw in (("fixed", {}), ("paged", {"kv_pool": 2049,
+                                               "kv_page_len": PAGE_LEN})):
+        engine = ServeEngine(cfg, params, batch_size=4, max_len=8192,
+                             kv_quant="mixfp4", device=dev, **kw)
+        rng = np.random.RandomState(seed + 4)
+        for i in range(engine.batch_size):
+            engine.add_request(Request(uid=i, prompt=rng.randint(
+                0, cfg.vocab, 1024).astype(np.int32),
+                max_new_tokens=4 * rounds + 8))
+        for _ in range(3):
+            engine.step()
+        engines[name] = engine
+    times = {name: [] for name in engines}
+    for name in ("fixed", "paged", "paged", "fixed") * (rounds // 2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engines[name].step()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t) * 1e3)
+    log(f"[serve-paged] decode step at B=4, 1024 tokens of context, "
+        f"{2 * rounds} steps each in alternating turns: fixed-slot median "
+        f"{statistics.median(times['fixed']):.2f} ms (min "
+        f"{min(times['fixed']):.2f}), paged median "
+        f"{statistics.median(times['paged']):.2f} ms (min "
+        f"{min(times['paged']):.2f})")
 
 
 # ---------------------------------------------------------------------------
@@ -669,6 +909,7 @@ def card_vs_cpu(dev, seed: int, w4a4: bool = False) -> dict:
     n_l, passes = cfg.n_layers, 1 + len(forced)
     want = {"mixfp4_quant_rows": 9 * n_l * passes, "mixfp4_gemm_w4a16": 0,
             "mixfp4_attn_decode": n_l * len(forced),
+            "mixfp4_attn_decode_paged": 0,
             "mixfp4_gemm_w4a4": 7 * n_l * passes,
             "mixfp4_gemm_w4a4_fused": 0, "fwht_rows": 7 * n_l * passes}
     if counts != want:
@@ -680,6 +921,94 @@ def card_vs_cpu(dev, seed: int, w4a4: bool = False) -> dict:
     log(f"{tag} fused == mixfp4-2pass-rowscale logits on the card, bitwise; "
         f"the two-pass run launched {counts}")
     return counts
+
+
+def kv_rows(engine, slot: int, n: int) -> dict:
+    """The packed K/V bytes of logical rows [0, n) of ``slot``, read
+    through the block table on a paged engine."""
+    out = {}
+    for name in ("k", "v"):
+        for child in ("payload", "scales"):
+            a = getattr(engine.cache[name], child)
+            if "pages" in engine.cache:
+                pos = torch.arange(n, device=a.device)
+                bt = engine.cache["pages"][slot].long()
+                out[name, child] = a[:, bt[pos // engine.kv_page_len],
+                                     pos % engine.kv_page_len]
+            else:
+                out[name, child] = a[:, slot, :n]
+    return out
+
+
+def chunked_prefix_vs_whole(dev, seed: int):
+    """gemma2-2b at full width cut to 2 layers: an 1100-token prompt that
+    shares its first 1000 tokens with an earlier one, prefilled (a) whole
+    into a fixed slot and (b) in 512-token chunks into the paged pool,
+    suffix only after the prefix hit.  Its first token and every real K/V
+    row's bytes must be equal, and so must the logits of the next decode
+    step: a query row's prefill result may not depend on how many rows
+    share its call."""
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    from repro_torch.models.base import pack_projections
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    cfg = configs.config("gemma2-2b").replace(n_layers=2)
+    packed, _, _ = pack_projections(build_model(cfg).init(seed, device=dev))
+    rng = np.random.RandomState(seed + 3)
+    first = rng.randint(0, cfg.vocab, 1000).astype(np.int32)
+    second = np.concatenate([first, rng.randint(0, cfg.vocab, 100).astype(
+        np.int32)])
+    common = {"batch_size": 2, "max_len": 8192, "kv_quant": "mixfp4",
+              "device": dev}
+    whole = ServeEngine(cfg, packed, **common)
+    paged = ServeEngine(cfg, packed, kv_pool=1025, kv_page_len=16,
+                        prefill_chunk=512, **common)
+    paged.add_request(Request(uid=0, prompt=first, max_new_tokens=1))
+    while paged.has_work():                   # its pages become a prefix
+        paged.step()
+    reqs = [Request(uid=1, prompt=second, max_new_tokens=8)
+            for _ in range(2)]
+    for engine, req in zip((whole, paged), reqs):
+        if not engine.add_request(req):
+            raise AssertionError("phase 4c admission refused")
+        while req._next is None:
+            engine.step()
+    # the paged engine's last chunk step also emitted the first token and
+    # decoded once; one step brings the whole-prompt engine level
+    whole.step()
+    rep = paged.pool_report()
+    if rep["prefix_hit_tokens"] != 1000 or rep["cow_copies"] != 1:
+        raise AssertionError(f"phase 4c pool report {rep}")
+    if reqs[0].generated != reqs[1].generated:
+        raise AssertionError(f"first tokens differ: whole "
+                             f"{reqs[0].generated}, chunked "
+                             f"{reqs[1].generated}")
+    slot = [next(i for i, x in enumerate(e.slots) if x is r)
+            for e, r in zip((whole, paged), reqs)]
+    n = len(second) + 1                 # the prompt and one decoded row
+    rows = [kv_rows(e, i, n) for e, i in zip((whole, paged), slot)]
+    bad = [k for k in rows[0] if not torch.equal(rows[0][k], rows[1][k])]
+    if bad:
+        raise AssertionError(f"K/V rows differ between whole and chunked "
+                             f"prefix-hit prefill: {bad}")
+    logits = []
+    for e, r in zip((whole, paged), reqs):
+        toks = torch.zeros(e.batch_size, dtype=torch.int64, device=dev)
+        toks[slot[0]] = r.generated[-1]
+        out, e.cache = e.model.decode_step(
+            e.params, toks, e.cache, torch.as_tensor(e.lengths, device=dev),
+            act=e.act)
+        logits.append(out[slot[0]])
+    if slot[0] != slot[1] or not torch.equal(logits[0], logits[1]):
+        raise AssertionError("decode logits after whole and chunked "
+                             "prefix-hit prefill differ")
+    log(f"[chunked-vs-whole] gemma2-2b width, 2 layers: a 1100-token prompt "
+        f"sharing 1000 tokens with an earlier one, prefilled whole (fixed "
+        f"slot, bucket 1152) and as a 100-token suffix in one 512-row chunk "
+        f"after a prefix hit (62 shared pages + 1 COW page): first tokens "
+        f"{reqs[0].generated}, all {n} K/V rows of 2 layers bitwise equal, "
+        f"next decode step's logits bitwise equal")
 
 
 def main():
@@ -707,14 +1036,26 @@ def main():
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     kernels = [check_quant(dev, flush), check_gemm(dev, flush),
                check_attn(dev, flush), *check_w4a4(dev, flush),
-               check_fwht(dev, flush)]
+               check_fwht(dev, flush), check_attn_paged(dev, flush)]
     del flush
     # each kernel's launches: from the path run that drives it
-    paths = {"w4a16": serve_path(dev, args.seed),
-             "w4a4-rht": serve_path(dev, args.seed, act_quant="mixfp4",
-                                    act_rht=True)}
+    fixed = serve_path(dev, args.seed, "[serve]")
+    paged = serve_path(dev, args.seed, "[serve-paged]",
+                       params=fixed.pop("params"), kv_pool=2049,
+                       kv_page_len=PAGE_LEN, prefill_chunk=512)
+    decode_step_ab(dev, paged.pop("params"), args.seed)
+    if paged["streams"] != fixed["streams"]:
+        raise AssertionError("paged chunked streams differ from the fixed "
+                             "whole-prompt ones")
+    log("[serve-paged] all six streams equal phase 3's token for token")
+    w4a4 = serve_path(dev, args.seed, "[serve-w4a4]", act_quant="mixfp4",
+                      act_rht=True)
+    del w4a4["params"]
+    paths = {"w4a16": fixed["counts"], "w4a4-rht": w4a4["counts"],
+             "paged-chunked": paged["counts"]}
     card_vs_cpu(dev, args.seed)
     paths["w4a4-2pass-rowscale"] = card_vs_cpu(dev, args.seed, w4a4=True)
+    chunked_prefix_vs_whole(dev, args.seed)
     for entry in kernels:
         entry["path"], entry["launches"] = next(
             (name, c[entry["name"]]) for name, c in paths.items()

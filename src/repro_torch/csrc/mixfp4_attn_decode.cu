@@ -1,11 +1,14 @@
-// One-token decode attention over a packed MixFP4 KV cache for sm_90a.
+// One-token decode attention over a packed MixFP4 KV cache for sm_90a: the
+// fixed-slot cache and the paged pool, one kernel body for both.
 //
 // Replaces: src/repro/kernels/mixfp4_attn.py :: mixfp4_attn_decode
-//           (_attn_decode_kernel, _flash_step, _decode_kv_block).
+//           (:174; _attn_decode_kernel, _flash_step, _decode_kv_block) and
+//           :: mixfp4_attn_decode_paged (:253; _attn_decode_paged_kernel).
 //
 // Bound: bytes.  A step reads each valid cache row once (dh/2 payload +
 // dh/16 scale bytes for K and again for V) for ~4*g*dh flops per row, far
-// below the rate at which the card could compute on it.
+// below the rate at which the card could compute on it.  The paged entry
+// also reads each sequence's block table, B * max_pages * 4 bytes.
 //
 // Design: one 256-thread block per (sequence, kv head).  The g = H/Hkv
 // query heads of a kv head share every decoded K/V block, so the packed
@@ -23,6 +26,17 @@
 // c*tanh(s/c); exponentials use expf / tanhf, never the fast intrinsics.
 // The output divides by l where l > 0.  Splitting S across blocks
 // (flash-decoding) is later work.
+//
+// Paged pool: the kernel is a template over its row-address policy and
+// nothing else.  FixedRows addresses logical row j of sequence b at
+// (b*S + j); PagedRows translates every row on its own through the block
+// table, (bt[b, j / page_len]*page_len + j % page_len), so a 32-key block
+// may span two pages.  Both entries are instantiated from this one source
+// with the same flags: the key loop, the score and softmax order and the
+// accumulation are the same instructions, so the paged output equals the
+// fixed kernel's on the gathered rows bit for bit.  Rows at or past a
+// sequence's length are never visited, so the pool's trash page 0 (where
+// unused table entries point) is never read for a live position.
 #include <cuda_runtime.h>
 #include <cuda_fp8.h>
 #include <stdint.h>
@@ -46,14 +60,32 @@ __device__ __forceinline__ float e4m3_value(uint32_t bits7) {
   return static_cast<float>(v);
 }
 
-// rows j0 .. j0+nk-1 of one kv head -> f32 buf[j][d]
+struct FixedRows {
+  int s_len;
+  __device__ __forceinline__ size_t row(int b, int j) const {
+    return static_cast<size_t>(b) * s_len + j;
+  }
+};
+
+struct PagedRows {
+  const int* bt;   // (B, max_pages) int32
+  int max_pages, page_len;
+  __device__ __forceinline__ size_t row(int b, int j) const {
+    const int page = bt[static_cast<size_t>(b) * max_pages + j / page_len];
+    return static_cast<size_t>(page) * page_len + j % page_len;
+  }
+};
+
+// logical rows j0 .. j0+nk-1 of sequence b, kv head kh -> f32 buf[j][d]
+template <class Rows>
 __device__ __forceinline__ void decode_rows(
     const uint8_t* __restrict__ pay, const uint8_t* __restrict__ sc,
-    float s32, float* buf, size_t row0, int hkv, int nk, int dh) {
+    float s32, float* buf, const Rows& rows, int b, int j0, int kh, int hkv,
+    int nk, int dh) {
   const int half = dh / 2;
   for (int idx = threadIdx.x; idx < nk * half; idx += NT) {
     const int j = idx / half, c = idx % half;
-    const size_t row = row0 + static_cast<size_t>(j) * hkv;
+    const size_t row = rows.row(b, j0 + j) * hkv + kh;
     const uint32_t byte = pay[row * half + c];
     const uint32_t sb = sc[row * (dh / 16) + c / 8];
     const float s = e4m3_value(sb & 0x7F);
@@ -63,13 +95,15 @@ __device__ __forceinline__ void decode_rows(
   }
 }
 
+// s_len: logical rows per sequence (S, or max_pages * page_len)
+template <class Rows>
 __global__ void __launch_bounds__(NT) attn_decode_kernel(
     const float* __restrict__ q, const uint8_t* __restrict__ kp,
     const uint8_t* __restrict__ ks, const uint8_t* __restrict__ vp,
     const uint8_t* __restrict__ vs, const int* __restrict__ lengths,
-    const float* __restrict__ s32, float* __restrict__ out, int s_len,
-    int h, int hkv, int dh, int window, float scale, float softcap,
-    float inv_cap) {
+    const float* __restrict__ s32, float* __restrict__ out, Rows rows,
+    int s_len, int h, int hkv, int dh, int window, float scale,
+    float softcap, float inv_cap) {
   extern __shared__ float smem[];
   const int g = h / hkv;
   float* kv = smem;               // BS * dh
@@ -99,8 +133,7 @@ __global__ void __launch_bounds__(NT) attn_decode_kernel(
 
   for (int j0 = lo; j0 < hi; j0 += BS) {
     const int nk = min(BS, hi - j0);
-    const size_t row0 = (static_cast<size_t>(b) * s_len + j0) * hkv + kh;
-    decode_rows(kp, ks, s32k, kv, row0, hkv, nk, dh);
+    decode_rows(kp, ks, s32k, kv, rows, b, j0, kh, hkv, nk, dh);
     __syncthreads();
     for (int j = warp; j < nk; j += NT / 32) {
       for (int hh = 0; hh < g; ++hh) {
@@ -133,7 +166,7 @@ __global__ void __launch_bounds__(NT) attn_decode_kernel(
       st_m[tid] = m_new;
       st_a[tid] = alpha;
     }
-    decode_rows(vp, vs, s32v, kv, row0, hkv, nk, dh);
+    decode_rows(vp, vs, s32v, kv, rows, b, j0, kh, hkv, nk, dh);
     __syncthreads();
     if (tid < dh) {
       for (int hh = 0; hh < g; ++hh) {
@@ -153,6 +186,23 @@ __global__ void __launch_bounds__(NT) attn_decode_kernel(
   }
 }
 
+template <class Rows>
+int launch(const float* q, const uint8_t* kp, const uint8_t* ks,
+           const uint8_t* vp, const uint8_t* vs, const int* lengths,
+           const float* s32, float* out, Rows rows, int b, int s, int h,
+           int hkv, int dh, int window, float scale, float softcap,
+           float inv_cap, void* stream) {
+  if (b == 0) return 0;
+  const int g = h / hkv;
+  const size_t smem =
+      sizeof(float) * (BS * dh + g * dh + g * BS + 3 * MAXG);
+  attn_decode_kernel<Rows><<<b * hkv, NT, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      q, kp, ks, vp, vs, lengths, s32, out, rows, s, h, hkv, dh, window,
+      scale, softcap, inv_cap);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q (B, H, dh) f32; K/V payload (B, S, Hkv, dh/2) u8 and scales
@@ -166,13 +216,22 @@ extern "C" int mixfp4_attn_decode(const float* q, const uint8_t* kp,
                                   int h, int hkv, int dh, int window,
                                   float scale, float softcap, float inv_cap,
                                   void* stream) {
-  if (b == 0) return 0;
-  const int g = h / hkv;
-  const size_t smem =
-      sizeof(float) * (BS * dh + g * dh + g * BS + 3 * MAXG);
-  attn_decode_kernel<<<b * hkv, NT, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      q, kp, ks, vp, vs, lengths, s32, out, s, h, hkv, dh, window, scale,
-      softcap, inv_cap);
-  return static_cast<int>(cudaGetLastError());
+  return launch(q, kp, ks, vp, vs, lengths, s32, out, FixedRows{s}, b, s, h,
+                hkv, dh, window, scale, softcap, inv_cap, stream);
+}
+
+// The paged pool: K/V payload (P, page_len, Hkv, dh/2) u8 and scales
+// (P, page_len, Hkv, dh/16) u8; block tables (B, max_pages) i32 whose
+// entries are pages < P; lengths (B,) i32 <= max_pages * page_len.  The
+// rest as above.
+extern "C" int mixfp4_attn_decode_paged(
+    const float* q, const uint8_t* kp, const uint8_t* ks, const uint8_t* vp,
+    const uint8_t* vs, const int* block_tables, const int* lengths,
+    const float* s32, float* out, int b, int max_pages, int page_len, int h,
+    int hkv, int dh, int window, float scale, float softcap, float inv_cap,
+    void* stream) {
+  return launch(q, kp, ks, vp, vs, lengths, s32, out,
+                PagedRows{block_tables, max_pages, page_len}, b,
+                max_pages * page_len, h, hkv, dh, window, scale, softcap,
+                inv_cap, stream);
 }

@@ -32,7 +32,9 @@ _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # source stem -> extra nvcc flags.  The quantizer must be byte-exact with
 # the reference, and the RHT and the W4A4 GEMM's fused prologue bitwise
 # equal to it and to their plain versions, so no multiply-add contraction
-# there.
+# there.  mixfp4_attn_decode holds both attention entries, fixed-slot and
+# paged, so the two are always built with the same flags (the paged one is
+# bitwise the fixed one only then).
 SOURCES = {
     "mixfp4_quant": ["-fmad=false"],
     "mixfp4_gemm_w4a16": [],

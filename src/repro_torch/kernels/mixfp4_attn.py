@@ -14,6 +14,16 @@ Masks are the reference's: ``kpos < len`` and, for ``window > 0``,
 dh^-0.5 scale.  ``mixfp4_attn_decode`` launches
 ``csrc/mixfp4_attn_decode.cu`` for CUDA tensors and runs
 :func:`attn_decode_plain` for CPU tensors.  Returns (B, H, dh) f32.
+
+``mixfp4_attn_decode_paged`` (the reference's entry of the same name)
+reads the same rows from the paged pool: K/V slabs
+(P, page_len, Hkv, dh/2) + (P, page_len, Hkv, dh/16) and block tables
+(B, max_pages) int32, logical row t of sequence b at page
+``bt[b, t // page_len]``, row ``t % page_len``; page 0 is the pool's trash
+page.  Its kernel is the fixed kernel's body with another row address
+(one source, the same flags), so on the gathered rows it is bitwise the
+fixed kernel; :func:`attn_decode_paged_plain` gathers the logical view and
+runs :func:`attn_decode_plain`.
 """
 from __future__ import annotations
 
@@ -23,14 +33,17 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["mixfp4_attn_decode", "attn_decode_plain", "dequant_kv",
-           "launches"]
+__all__ = ["mixfp4_attn_decode", "mixfp4_attn_decode_paged",
+           "attn_decode_plain", "attn_decode_paged_plain", "gather_pages",
+           "dequant_kv", "launches", "launches_paged"]
 
 _G = 16
 _NEG_INF = -1e30
 
 #: kernel launches (CUDA path only); read by ``kernels.ops.launch_counts``
 launches = 0
+#: launches of the paged entry, likewise
+launches_paged = 0
 
 
 def dequant_kv(payload: torch.Tensor, scales: torch.Tensor,
@@ -90,13 +103,106 @@ def mixfp4_attn_decode(q, k_payload, k_scales, v_payload, v_scales, lengths,
         return attn_decode_plain(q, k_payload, k_scales, v_payload, v_scales,
                                  lengths, window=window, k_scale32=k_scale32,
                                  v_scale32=v_scale32, softcap=softcap)
+    qf, lens, s32, out, scal = _launch_args(
+        q, hkv, lengths, k_scale32, v_scale32, softcap,
+        k_payload=k_payload, k_scales=k_scales, v_payload=v_payload,
+        v_scales=v_scales)
+    err = _lib().mixfp4_attn_decode(
+        qf.data_ptr(), k_payload.data_ptr(), k_scales.data_ptr(),
+        v_payload.data_ptr(), v_scales.data_ptr(), lens.data_ptr(),
+        s32.data_ptr(), out.data_ptr(), b, s, h, hkv, dh, window, *scal,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"mixfp4_attn_decode launch failed: "
+                           f"cudaError {err}")
+    launches += 1
+    return out
+
+
+def gather_pages(slab: torch.Tensor, block_tables: torch.Tensor):
+    """Pool slab (P, page_len, ...) -> each sequence's logical rows
+    (B, max_pages * page_len, ...) through its block-table row."""
+    g = slab[block_tables.to(torch.int64)]
+    return g.reshape(g.shape[0], -1, *g.shape[3:])
+
+
+def attn_decode_paged_plain(q, k_payload, k_scales, v_payload, v_scales,
+                            block_tables, lengths, *, window: int = 0,
+                            k_scale32=1.0, v_scale32=1.0,
+                            softcap: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch version of the paged kernel: gather each sequence's
+    pages into the logical view, then :func:`attn_decode_plain`."""
+    return attn_decode_plain(
+        q, *[gather_pages(t, block_tables)
+             for t in (k_payload, k_scales, v_payload, v_scales)],
+        lengths, window=window, k_scale32=k_scale32, v_scale32=v_scale32,
+        softcap=softcap)
+
+
+def mixfp4_attn_decode_paged(q, k_payload, k_scales, v_payload, v_scales,
+                             block_tables, lengths, *, window: int = 0,
+                             k_scale32=1.0, v_scale32=1.0,
+                             softcap: float = 0.0) -> torch.Tensor:
+    """Decode attention over the paged pool -> (B, H, dh) f32.  CUDA
+    tensors launch the kernel; CPU tensors take the plain version."""
+    global launches_paged
+    b, h, dh = q.shape
+    n_pages, page_len, hkv, dh2 = k_payload.shape
+    if dh != 2 * dh2 or dh % _G or h % hkv:
+        raise ValueError(f"q {tuple(q.shape)} vs packed K pages "
+                         f"{tuple(k_payload.shape)}")
+    if page_len % _G:
+        raise ValueError(f"page_len={page_len} not a multiple of {_G}")
+    for name, t, last in (("k_payload", k_payload, dh2),
+                          ("v_payload", v_payload, dh2),
+                          ("k_scales", k_scales, dh // _G),
+                          ("v_scales", v_scales, dh // _G)):
+        if (tuple(t.shape) != (n_pages, page_len, hkv, last)
+                or t.dtype != torch.uint8):
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype}: expected "
+                             f"{(n_pages, page_len, hkv, last)} uint8")
+    if block_tables.ndim != 2 or block_tables.shape[0] != b:
+        raise ValueError(f"block_tables {tuple(block_tables.shape)}: "
+                         f"expected ({b}, max_pages)")
+    window = int(window)
+    if q.device.type == "cpu":
+        return attn_decode_paged_plain(
+            q, k_payload, k_scales, v_payload, v_scales, block_tables,
+            lengths, window=window, k_scale32=k_scale32,
+            v_scale32=v_scale32, softcap=softcap)
+    if block_tables.dtype != torch.int32:
+        raise ValueError(f"block_tables {block_tables.dtype}: expected "
+                         "int32")
+    qf, lens, s32, out, scal = _launch_args(
+        q, hkv, lengths, k_scale32, v_scale32, softcap,
+        k_payload=k_payload, k_scales=k_scales, v_payload=v_payload,
+        v_scales=v_scales, block_tables=block_tables)
+    max_pages = block_tables.shape[1]
+    err = _lib().mixfp4_attn_decode_paged(
+        qf.data_ptr(), k_payload.data_ptr(), k_scales.data_ptr(),
+        v_payload.data_ptr(), v_scales.data_ptr(), block_tables.data_ptr(),
+        lens.data_ptr(), s32.data_ptr(), out.data_ptr(), b, max_pages,
+        page_len, h, hkv, dh, window, *scal,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"mixfp4_attn_decode_paged launch failed: "
+                           f"cudaError {err}")
+    launches_paged += 1
+    return out
+
+
+def _launch_args(q, hkv, lengths, k_scale32, v_scale32, softcap,
+                 **operands):
+    """Checks and device arguments shared by both entries: the f32 query,
+    (B,) int32 lengths, the two per-tensor scales, the output and the
+    (scale, softcap, 1/softcap) f32 scalars."""
+    b, h, dh = q.shape
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if dh > 256 or h // hkv > 8:
         raise ValueError(f"kernel supports dh <= 256 and H/Hkv <= 8, got "
                          f"dh={dh}, H/Hkv={h // hkv}")
-    for name, t in (("k_payload", k_payload), ("k_scales", k_scales),
-                    ("v_payload", v_payload), ("v_scales", v_scales)):
+    for name, t in operands.items():
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {q.device}")
     qf = q.to(torch.float32).contiguous()
@@ -111,24 +217,17 @@ def mixfp4_attn_decode(q, k_payload, k_scales, v_payload, v_scales, lengths,
     scale = float(torch.tensor(dh ** -0.5, dtype=torch.float32))
     inv_cap = float(torch.tensor(1.0 / softcap if softcap else 0.0,
                                  dtype=torch.float32))
-    err = _lib().mixfp4_attn_decode(
-        qf.data_ptr(), k_payload.data_ptr(), k_scales.data_ptr(),
-        v_payload.data_ptr(), v_scales.data_ptr(), lens.data_ptr(),
-        s32.data_ptr(), out.data_ptr(), b, s, h, hkv, dh, window, scale,
-        float(softcap), inv_cap,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"mixfp4_attn_decode launch failed: "
-                           f"cudaError {err}")
-    launches += 1
-    return out
+    return qf, lens, s32, out, (scale, float(softcap), inv_cap)
 
 
 def _lib():
     lib = build.load("mixfp4_attn_decode")
-    fn = lib.mixfp4_attn_decode
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-                       + [ctypes.c_float] * 3 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    fixed, paged = lib.mixfp4_attn_decode, lib.mixfp4_attn_decode_paged
+    if fixed.argtypes is None:
+        fixed.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                          + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+        fixed.restype = ctypes.c_int
+        paged.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                          + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+        paged.restype = ctypes.c_int
     return lib

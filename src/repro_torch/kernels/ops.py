@@ -14,13 +14,15 @@ from repro_torch.kernels import fwht, mixfp4_attn, mixfp4_gemm, mixfp4_quant
 
 __all__ = ["quantize_rows", "pack_weight_qt", "gemm_w4a16", "gemm_w4a4",
            "gemm_w4a4_fused", "rht_rows", "attn_decode_packed",
-           "launch_counts", "reset_launch_counts", "KERNELS"]
+           "attn_decode_paged", "launch_counts", "reset_launch_counts",
+           "KERNELS"]
 
 #: kernel name -> (module whose wrapper launches it, its count attribute)
 KERNELS = {
     "mixfp4_quant_rows": (mixfp4_quant, "launches"),
     "mixfp4_gemm_w4a16": (mixfp4_gemm, "launches"),
     "mixfp4_attn_decode": (mixfp4_attn, "launches"),
+    "mixfp4_attn_decode_paged": (mixfp4_attn, "launches_paged"),
     "mixfp4_gemm_w4a4": (mixfp4_gemm, "launches_w4a4"),
     "mixfp4_gemm_w4a4_fused": (mixfp4_gemm, "launches_w4a4_fused"),
     "fwht_rows": (fwht, "launches"),
@@ -84,3 +86,13 @@ def attn_decode_packed(q, k_payload, k_scales, v_payload, v_scales,
                        lengths, **kw):
     return mixfp4_attn.mixfp4_attn_decode(q, k_payload, k_scales, v_payload,
                                           v_scales, lengths, **kw)
+
+
+def attn_decode_paged(q, k_payload, k_scales, v_payload, v_scales,
+                      block_tables, lengths, **kw):
+    """Decode attention over the paged pool: K/V page slabs
+    (P, page_len, Hkv, ...) and block tables (B, max_pages); bitwise
+    ``attn_decode_packed`` on the gathered rows."""
+    return mixfp4_attn.mixfp4_attn_decode_paged(
+        q, k_payload, k_scales, v_payload, v_scales, block_tables, lengths,
+        **kw)

@@ -59,10 +59,18 @@ def ref_dequant_kv(payload, scales, scale32=1.0) -> torch.Tensor:
 
 def ref_attn_decode_packed(q, k_payload, k_scales, v_payload, v_scales,
                            lengths, *, window: int = 0, k_scale32=1.0,
-                           v_scale32=1.0, softcap: float = 0.0
-                           ) -> torch.Tensor:
+                           v_scale32=1.0, softcap: float = 0.0,
+                           block_tables=None) -> torch.Tensor:
     """Dequantize the cache and run masked softmax . V in f32 (query at
-    position ``lengths - 1``)."""
+    position ``lengths - 1``).  With ``block_tables`` (B, max_pages) the
+    K/V children are paged pool slabs (P, page_len, Hkv, ...), gathered
+    first into the logical (B, max_pages * page_len, Hkv, ...) view."""
+    if block_tables is not None:
+        def gather(a):
+            g = a[torch.as_tensor(block_tables, dtype=torch.int64)]
+            return g.reshape(g.shape[0], -1, *g.shape[3:])
+        k_payload, k_scales = gather(k_payload), gather(k_scales)
+        v_payload, v_scales = gather(v_payload), gather(v_scales)
     b, h, dh = q.shape
     s, hkv = k_payload.shape[1:3]
     g = h // hkv

@@ -9,6 +9,8 @@ Usage (on the GPU; ``--device cpu`` runs the kernels' plain versions):
       --kv-quant mixfp4 --act-quant mixfp4 --act-rht
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
       --smoke --device cpu --kv-quant mixfp4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
+      --smoke --device cpu --kv-quant mixfp4 --kv-pool 9 --prefill-chunk 4
 """
 from __future__ import annotations
 
@@ -59,8 +61,25 @@ def main(argv=None):
                          "activations before the quantizer, the same "
                          "deterministic signs); requires --act-quant "
                          "mixfp4 or mixfp4-2pass-rowscale")
+    ap.add_argument("--kv-pool", type=int, default=0, metavar="PAGES",
+                    help="serve the packed KV cache as a PAGES-page pool "
+                         "with per-request block tables, copy-on-write "
+                         "prefix caching and LRU eviction (serving.kvpool; "
+                         "requires --kv-quant mixfp4). Page 0 is the trash "
+                         "page, so usable pages are PAGES-1")
+    ap.add_argument("--kv-page-len", type=int, default=16, metavar="ROWS",
+                    help="rows per KV page (multiple of 16 — the MixFP4 "
+                         "block — and must divide --max-len)")
     ap.add_argument("--prefill-buckets", default="auto",
                     choices=["auto", "pow2-64", "off"])
+    ap.add_argument("--prefill-chunk", type=int, default=0, metavar="TOKENS",
+                    help="chunked-prefill scheduling (serving.scheduler): "
+                         "split each admission's prefill into TOKENS-token "
+                         "chunks interleaved with decode steps, so long "
+                         "prompts never stall the decode batch by more "
+                         "than the chunk budget (bitwise-identical to "
+                         "whole-prompt prefill and one prefill shape; "
+                         "replaces --prefill-buckets)")
     args = ap.parse_args(argv)
     if args.act_rht and args.act_quant not in ("mixfp4",
                                                "mixfp4-2pass-rowscale"):
@@ -78,7 +97,10 @@ def main(argv=None):
                          max_len=args.max_len, method=args.quant,
                          kv_quant=args.kv_quant, act_quant=args.act_quant,
                          act_rht=args.act_rht,
-                         prefill_buckets=args.prefill_buckets, device=device)
+                         prefill_buckets=args.prefill_buckets,
+                         prefill_chunk=args.prefill_chunk or None,
+                         kv_pool=args.kv_pool or None,
+                         kv_page_len=args.kv_page_len, device=device)
     del params  # projections now live only as packed QTensors
     path = ("W4A16 kernel" if engine.act_quant == "bf16"
             else "W4A4 kernels")
@@ -93,10 +115,19 @@ def main(argv=None):
         print(f"[serve] packed MixFP4 KV cache: "
               f"{engine.kv_cache_bytes() / 2**20:.1f} MiB, decode reads it "
               f"through the attention kernel")
+    if engine.prefill_chunk:
+        print(f"[serve] chunked-prefill scheduler armed: admissions "
+              f"prefill {engine.prefill_chunk} tokens/step interleaved "
+              f"with decode")
 
     rng = np.random.RandomState(args.seed)
-    pending = [Request(uid=i, prompt=rng.randint(
-        0, cfg.vocab, args.prompt_len).astype(np.int32),
+    # pooled runs share a page-sized "system prompt" across requests so the
+    # pool report below shows prefix hits
+    shared = (rng.randint(0, cfg.vocab, args.kv_page_len).astype(np.int32)
+              if args.kv_pool else np.zeros((0,), np.int32))
+    pending = [Request(uid=i, prompt=np.concatenate(
+        [shared, rng.randint(0, cfg.vocab, args.prompt_len).astype(
+            np.int32)]),
         max_new_tokens=args.new_tokens) for i in range(args.requests)]
     ops.reset_launch_counts()
     t0, n_tok = time.perf_counter(), 0
@@ -111,6 +142,21 @@ def main(argv=None):
           f"({n_tok / max(dt, 1e-9):.1f} tok/s, {engine.decode_steps} "
           f"decode steps)")
     print(f"[serve] kernel launches: {ops.launch_counts()}")
+    rep = engine.pool_report()
+    if rep is not None:
+        print(f"[serve] KV pool: {rep['pages_total']} pages x "
+              f"{rep['page_len']} rows, peak concurrency "
+              f"{engine.max_concurrent}; prefix hits {rep['prefix_hits']} "
+              f"pages / {rep['prefix_hit_tokens']} tokens skipped, "
+              f"{rep['cow_copies']} COW copies, {rep['evictions']} "
+              f"evictions, {rep['alloc_failures']} admission deferrals; "
+              f"final occupancy {rep['occupancy']:.2f} "
+              f"({rep['pages_cached']} cached / {rep['pages_free']} free)")
+    if engine.scheduler is not None:
+        print(f"[serve] chunked prefill: {engine.prefill_dispatches} "
+              f"prefill passes, at most "
+              f"{engine.scheduler.max_prefill_tokens_per_step()} prompt "
+              f"tokens in one step")
 
 
 def _leaves(tree):

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import hadamard, qtensor
 from repro_torch.kernels import ops
+from repro_torch.kernels.mixfp4_attn import gather_pages
 
 __all__ = ["ArchConfig", "ActQuant", "ACT_QUANT_MODES", "PROJECTION_KEYS",
            "is_packable_projection", "pack_projections", "padded_vocab",
@@ -249,11 +250,19 @@ def qlinear(x: torch.Tensor, w, act: ActQuant = ActQuant()) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def attention(q, k, v, *, causal_offset=0, window: int = 0,
               softcap: float = 0.0, chunk: int = 1024, kv_valid_len=None,
-              causal: bool = True) -> torch.Tensor:
+              causal: bool = True, pad_blocks: bool = False) -> torch.Tensor:
     """Masked GQA attention in f32: q (B, Sq, H, dh), k/v (B, Sk, Hkv, dh).
     ``causal_offset`` is the absolute position of q[:, 0] (scalar or (B,));
     ``kv_valid_len`` (scalar or (B,)) masks cache rows past the valid ones.
-    Query rows run in blocks of ``chunk``."""
+
+    Query rows run in blocks of ``chunk``.  With ``pad_blocks`` (every
+    prefill sets it) each block runs at exactly ``chunk`` rows, the last
+    one padded with zero rows: each product then has one shape whatever the
+    prompt or chunk length, so a query row's result does not depend on how
+    many rows share its call (on the card ``einsum`` goes to cuBLAS, which
+    may pick another algorithm, and another summation order, for another
+    row count).  That keeps a chunked or suffix-only prefill bitwise the
+    whole-prompt one."""
     b, sq, h, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = h // hkv
@@ -270,7 +279,10 @@ def attention(q, k, v, *, causal_offset=0, window: int = 0,
     for c0 in range(0, sq, chunk):
         qc = qr[:, c0:c0 + chunk]
         nc = qc.shape[1]
-        qpos = offset[..., None] + c0 + torch.arange(nc, device=dev)
+        if pad_blocks:
+            qc = F.pad(
+                qc, (0, 0, 0, 0, 0, 0, 0, chunk - nc)).contiguous()
+        qpos = offset[..., None] + c0 + torch.arange(qc.shape[1], device=dev)
         s = torch.einsum("bchgd,bshd->bhgcs", qc, kf) * scale
         if softcap:
             s = softcap * torch.tanh(s / softcap)
@@ -288,7 +300,7 @@ def attention(q, k, v, *, causal_offset=0, window: int = 0,
         s = s.masked_fill(~mask[:, None, None], -1e30)
         p = torch.softmax(s, dim=-1)
         o = torch.einsum("bhgcs,bshd->bchgd", p, vf)
-        outs.append(o.reshape(b, nc, h, dh))
+        outs.append(o[:, :nc].reshape(b, nc, h, dh))
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
@@ -310,55 +322,92 @@ def quantize_kv_rows(kv: torch.Tensor):
             scales.reshape(*shape[:-1], shape[-1] // 16))
 
 
+def _decode_lengths(cache_len, b: int, s: int, device) -> torch.Tensor:
+    """The (B,) int64 write positions of a one-token decode step."""
+    if s != 1:
+        raise ValueError("per-sequence cache_len needs s == 1")
+    return torch.as_tensor(cache_len, device=device).to(torch.int64).expand(b)
+
+
+def _kv_rows(seq, pos, block_tables, page_len: int):
+    """Storage index of logical row ``pos`` of sequence ``seq``: ``(seq,
+    pos)`` in a fixed-slot cache (B, S, Hkv, ...), ``(block_tables[seq,
+    pos // page_len], pos % page_len)`` in the paged pool's slabs
+    (P, page_len, Hkv, ...)."""
+    if block_tables is None:
+        return seq, pos
+    return (block_tables[seq, pos // page_len].to(torch.int64),
+            pos % page_len)
+
+
 def _attn_packed_cached(q, knew, vnew, ck: qtensor.QTensor,
                         cv: qtensor.QTensor, cache_len, window: int,
-                        cfg: ArchConfig):
+                        cfg: ArchConfig, *, prefill: bool,
+                        block_tables=None):
     """Attention over one layer of the packed cache.  ``ck``/``cv`` are
-    views into the engine's cache and are written IN PLACE.
+    views into the engine's cache and are written IN PLACE: a fixed-slot
+    cache (B, S, Hkv, ...), or with ``block_tables`` (B, max_pages) int32
+    the paged pool's slabs (P, page_len, Hkv, ...), where logical row t of
+    sequence b lives at ``(block_tables[b, t // page_len], t % page_len)``
+    (``serving.kvpool``).  The two differ only in that row address.
 
-    Decode (s == 1): quantize the new K/V row, scatter its bytes at each
-    sequence's ``cache_len``, and run the decode-attention kernel with
-    ``lengths = cache_len + 1``.  Prefill (s > 1, scalar ``cache_len``):
-    quantize every prompt row, write them, and attend over the
-    *dequantized* rows with the plain ``attention`` — the values later
-    decode steps read back."""
+    Decode (``cache_len`` (B,) or a scalar, s == 1): quantize the new K/V
+    row, scatter its bytes at each sequence's ``cache_len`` and run the
+    decode-attention kernel (fixed or paged) with ``lengths = cache_len +
+    1``.  Idle paged lanes hold zeroed table rows and scatter into page 0,
+    the pool's trash page, which every read masks.  Prefill (``cache_len``
+    the first row's position, any s): quantize every prompt row, write
+    them, and attend over each sequence's *dequantized* logical rows with
+    the plain ``attention`` — the values later decode steps read back, the
+    same for both layouts.  A one-token prefill chunk is a prefill too, so
+    chunking never changes which attention a row takes."""
     b, s = q.shape[:2]
+    dev = q.device
     kp, ks = quantize_kv_rows(knew)
     vp, vs = quantize_kv_rows(vnew)
-    if s == 1:
-        cl = torch.as_tensor(cache_len, device=q.device).to(
-            torch.int64).expand(b)
-        rows = torch.arange(b, device=q.device)
-        ck.payload[rows, cl] = kp[:, 0]
-        ck.scales[rows, cl] = ks[:, 0]
-        cv.payload[rows, cl] = vp[:, 0]
-        cv.scales[rows, cl] = vs[:, 0]
-        o = ops.attn_decode_packed(
-            q[:, 0], ck.payload, ck.scales, cv.payload, cv.scales,
-            (cl + 1).to(torch.int32), window=window,
-            softcap=cfg.softcap_attn, k_scale32=ck.scale32,
-            v_scale32=cv.scale32)
+    seq = torch.arange(b, device=dev)[:, None]
+    if prefill:
+        cl = int(cache_len)
+        pos = torch.arange(cl, cl + s, device=dev)[None]
+    else:
+        cl = _decode_lengths(cache_len, b, s, dev)
+        pos = cl[:, None]
+    rows = _kv_rows(seq, pos, block_tables, ck.payload.shape[1])
+    for leaf, payload, scales in ((ck, kp, ks), (cv, vp, vs)):
+        leaf.payload[rows] = payload
+        leaf.scales[rows] = scales
+    if not prefill:
+        lengths = (cl + 1).to(torch.int32)
+        kw = dict(window=window, softcap=cfg.softcap_attn,
+                  k_scale32=ck.scale32, v_scale32=cv.scale32)
+        slabs = (q[:, 0], ck.payload, ck.scales, cv.payload, cv.scales)
+        if block_tables is None:
+            o = ops.attn_decode_packed(*slabs, lengths, **kw)
+        else:
+            o = ops.attn_decode_paged(*slabs, block_tables, lengths, **kw)
         return o[:, None].to(q.dtype)
-    cl = int(cache_len)
-    ck.payload[:, cl:cl + s] = kp
-    ck.scales[:, cl:cl + s] = ks
-    cv.payload[:, cl:cl + s] = vp
-    cv.scales[:, cl:cl + s] = vs
-    k = qtensor.from_packed_rows(ck.payload, ck.scales,
+
+    def logical(t):
+        return t if block_tables is None else gather_pages(t, block_tables)
+
+    k = qtensor.from_packed_rows(logical(ck.payload), logical(ck.scales),
                                  ck.scale32).dequantize()
-    v = qtensor.from_packed_rows(cv.payload, cv.scales,
+    v = qtensor.from_packed_rows(logical(cv.payload), logical(cv.scales),
                                  cv.scale32).dequantize()
     return attention(q, k, v, causal_offset=cl, window=window,
                      softcap=cfg.softcap_attn, chunk=cfg.attn_chunk,
-                     kv_valid_len=cl + s)
+                     kv_valid_len=cl + s, pad_blocks=True)
 
 
 def attn_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *, positions,
-               window: int, kv_cache, cache_len,
-               act: ActQuant = ActQuant()) -> torch.Tensor:
+               window: int, kv_cache, cache_len, prefill: bool,
+               act: ActQuant = ActQuant(),
+               block_tables=None) -> torch.Tensor:
     """The attention sub-layer over a cache.  ``kv_cache`` is one layer's
-    (K, V): packed QTensors (the fused packed path) or bf16 tensors; either
-    is updated in place."""
+    (K, V): packed QTensors (the fused packed path; with ``block_tables``
+    they are paged pool slabs) or bf16 tensors; either is updated in
+    place.  ``prefill`` runs the rows from position ``cache_len``; else it
+    is a one-token decode step at ``cache_len`` (B,) per sequence."""
     b, s, _ = x.shape
     dh = cfg.dh
     q = qlinear(x, p["wq"], act).reshape(b, s, cfg.n_heads, dh)
@@ -371,22 +420,22 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *, positions,
     knew = apply_rope(knew, positions, cfg.rope_theta)
     ck, cv = kv_cache
     if isinstance(ck, qtensor.QTensor):
-        o = _attn_packed_cached(q, knew, vnew, ck, cv, cache_len, window, cfg)
+        o = _attn_packed_cached(q, knew, vnew, ck, cv, cache_len, window,
+                                cfg, prefill=prefill,
+                                block_tables=block_tables)
     else:
-        cl = cache_len
-        if isinstance(cl, int):
+        if prefill:
+            cl = int(cache_len)
             ck[:, cl:cl + s] = knew.to(ck.dtype)
             cv[:, cl:cl + s] = vnew.to(cv.dtype)
         else:
-            if s != 1:
-                raise ValueError("per-sequence cache_len needs s == 1")
-            cl = cl.to(device=x.device, dtype=torch.int64).expand(b)
+            cl = _decode_lengths(cache_len, b, s, x.device)
             rows = torch.arange(b, device=x.device)
             ck[rows, cl] = knew[:, 0].to(ck.dtype)
             cv[rows, cl] = vnew[:, 0].to(cv.dtype)
         o = attention(q, ck, cv, causal_offset=cl, window=window,
                       softcap=cfg.softcap_attn, chunk=cfg.attn_chunk,
-                      kv_valid_len=cl + s)
+                      kv_valid_len=cl + s, pad_blocks=prefill)
     return qlinear(o.reshape(b, s, cfg.n_heads * dh), p["wo"], act)
 
 

@@ -7,8 +7,10 @@ reference stacks them for ``lax.scan``; here a Python loop walks the
 list).  The KV cache is ``{"k", "v"}`` with a leading layer axis: packed
 QTensors (payload (L, B, S, Hkv, dh/2), scales (L, B, S, Hkv, dh/16),
 scale32 (L,)) for ``kv_quant="mixfp4"``, or bf16 tensors
-(L, B, S, Hkv, dh).  Prefill and decode update the cache IN PLACE and
-return it.
+(L, B, S, Hkv, dh).  The paged pool (``pages=``) holds page slabs
+(L, P, page_len, Hkv, ...) instead, plus a ``"pages"`` block table
+(B, max_len // page_len) int32.  Prefill and decode update the cache IN
+PLACE and return it.
 """
 from __future__ import annotations
 
@@ -90,15 +92,30 @@ class TransformerLM:
     # ------------------------------------------------------------------
     def init_cache(self, batch_size: int, max_len: int, *,
                    kv_quant: str | None = None, device="cuda",
-                   pages=None) -> dict:
+                   pages: tuple[int, int] | None = None) -> dict:
         """Preallocated cache; ``kv_quant="mixfp4"`` holds it packed (zero
-        bytes decode to exact zeros), ``None``/``"bf16"`` dense bf16."""
-        if pages is not None:
-            raise NotImplementedError(
-                "the paged KV pool is not ported yet (ROADMAP §1 item 7)")
+        bytes decode to exact zeros), ``None``/``"bf16"`` dense bf16.
+
+        ``pages=(num_pages, page_len)`` builds the paged pool instead
+        (``serving.kvpool``): K/V children are page slabs
+        (L, P, page_len, Hkv, ...) shared by every request, and
+        ``"pages"`` is a (B, max_len // page_len) int32 block table mapping
+        each lane's logical pages to slab rows; zeroed, it points every
+        lane at page 0, the pool's trash page."""
         cfg = self.cfg
+        if pages is not None:
+            if kv_quant != "mixfp4":
+                raise ValueError("paged KV (pages=) requires "
+                                 f"kv_quant='mixfp4', got {kv_quant!r}")
+            num_pages, page_len = pages
+            if page_len % 16 or max_len % page_len:
+                raise ValueError(
+                    f"page_len={page_len} must be a multiple of 16 and "
+                    f"divide max_len={max_len}")
         dev = resolve_device(device)
-        rows = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads)
+        rows = ((cfg.n_layers, batch_size, max_len, cfg.n_kv_heads)
+                if pages is None
+                else (cfg.n_layers, num_pages, page_len, cfg.n_kv_heads))
         if kv_quant in (None, "bf16"):
             return {"k": torch.zeros((*rows, cfg.dh), dtype=torch.bfloat16,
                                      device=dev),
@@ -122,7 +139,11 @@ class TransformerLM:
                 method="mixfp4", layout=qtensor.BlockLayout1D(-1, 16),
                 shape=(*rows[1:], cfg.dh), dtype="float32")
 
-        return {"k": packed(), "v": packed()}
+        cache = {"k": packed(), "v": packed()}
+        if pages is not None:
+            cache["pages"] = torch.zeros((batch_size, max_len // page_len),
+                                         dtype=torch.int32, device=dev)
+        return cache
 
     @staticmethod
     def _layer(cache_leaf, layer: int, slot: int | None = None):
@@ -138,7 +159,14 @@ class TransformerLM:
 
     def reset_slot(self, cache: dict, i: int) -> dict:
         """Zero slot ``i``'s rows in place (zero packed bytes decode to
-        exact zeros) so a new request starts with no stale K/V."""
+        exact zeros) so a new request starts with no stale K/V.  On the
+        paged pool only the lane's block-table row is cleared (to the trash
+        page): pool bytes are never zeroed, since unmapped rows are
+        unreachable and every mapped row is freshly written or a shared
+        immutable prefix page."""
+        if "pages" in cache:
+            cache["pages"][i] = 0
+            return cache
         for leaf in (cache["k"], cache["v"]):
             if isinstance(leaf, qtensor.QTensor):
                 leaf.payload[:, i] = 0
@@ -157,7 +185,8 @@ class TransformerLM:
         return x
 
     def _run_layers_cached(self, params, x, cache, cache_len, positions,
-                           act: ActQuant, slot: int | None = None):
+                           act: ActQuant, *, prefill: bool,
+                           slot: int | None = None, block_tables=None):
         cfg = self.cfg
         windows = self.layer_windows()
         for li, lp in enumerate(params["layers"]):
@@ -166,26 +195,39 @@ class TransformerLM:
                   self._layer(cache["v"], li, slot))
             x = x + base.attn_apply(lp["attn"], h, cfg, positions=positions,
                                     window=int(windows[li]), kv_cache=kv,
-                                    cache_len=cache_len, act=act)
+                                    cache_len=cache_len, prefill=prefill,
+                                    act=act, block_tables=block_tables)
             h = base.rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
             x = x + base.mlp(lp["mlp"], h, cfg, act)
         return base.rms_norm(x, params["ln_f"], cfg.norm_eps)
 
     def prefill_slot(self, params, tokens: torch.Tensor, cache: dict,
                      slot: int, true_len: int | None = None,
-                     act: ActQuant = ActQuant()):
-        """Run a whole prompt (1, P) into cache slot ``slot`` in one pass.
+                     act: ActQuant = ActQuant(),
+                     start_pos: int = 0):
+        """Run a prompt (1, P) into cache slot ``slot`` in one pass.
         ``true_len`` supports prompt bucketing: ``tokens`` is padded up the
         ladder and the logits come from position ``true_len - 1``; padded
         rows are causally invisible to the real ones and masked at decode
-        until overwritten.  ``act`` is the activation format of every
-        projection.  Returns (logits (1, V), cache)."""
+        until overwritten.  ``start_pos`` starts the prompt at that cache
+        position, past rows already written (a prefix served from the pool,
+        or earlier chunks): positions and causality shift by it.  On the
+        paged pool the slot's view is its block-table row and the rows
+        scatter into its own pages.  ``act`` is the activation format of
+        every projection.  Returns (logits (1, V), cache)."""
         cfg = self.cfg
         p_len = tokens.shape[1]
+        start = int(start_pos)
         x = self._embed(params, tokens)
-        positions = torch.arange(p_len, device=x.device)[None, :]
-        x = self._run_layers_cached(params, x, cache, 0, positions, act,
-                                    slot=slot)
+        positions = torch.arange(start, start + p_len,
+                                 device=x.device)[None, :]
+        if "pages" in cache:
+            x = self._run_layers_cached(
+                params, x, cache, start, positions, act, prefill=True,
+                block_tables=cache["pages"][slot:slot + 1])
+        else:
+            x = self._run_layers_cached(params, x, cache, start, positions,
+                                        act, prefill=True, slot=slot)
         last = p_len if true_len is None else int(true_len)
         logits = base.lm_logits(x[:, last - 1], params["embed"],
                                 cfg.softcap_final, vocab=cfg.vocab)
@@ -200,7 +242,8 @@ class TransformerLM:
         x = self._embed(params, tokens[:, None])
         positions = base.decode_positions(cache_len, x.shape[0])
         x = self._run_layers_cached(params, x, cache, cache_len, positions,
-                                    act)
+                                    act, prefill=False,
+                                    block_tables=cache.get("pages"))
         logits = base.lm_logits(x[:, 0], params["embed"], cfg.softcap_final,
                                 vocab=cfg.vocab)
         return logits, cache

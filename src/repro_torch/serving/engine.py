@@ -14,10 +14,19 @@ Admissions prefill the whole prompt in one pass (``prefill_slot``); with
 pow-2/64-step length ladder, which leaves the emitted stream bitwise
 unchanged.
 
+``kv_pool=P`` serves the packed KV cache as a pool of P pages of
+``kv_page_len`` rows (``serving.kvpool``): per-request block tables,
+copy-on-write prefix caching (a prompt whose prefix is cached prefills
+only its suffix) and LRU eviction; decode reads the pool through the paged
+attention kernel.  ``prefill_chunk=T`` splits each admission's prefill
+into T-token chunks, one per ``step()`` ahead of the decode
+(``serving.scheduler``).  Both leave the emitted streams bitwise those of
+the fixed-slot, whole-prompt engine.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the paged KV pool, chunked prefill, the request lifecycle (faults,
-deadlines, journal, watchdog, metrics, the fused -> 2-pass degradation
-rung), and mesh serving.
+item): the request lifecycle (queue, faults, deadlines, journal, watchdog,
+metrics, the fused -> 2-pass and paged -> fixed-slot degradation rungs),
+and mesh serving.
 """
 from __future__ import annotations
 
@@ -31,6 +40,8 @@ from repro_torch.core import hadamard, qtensor
 from repro_torch.models import build_model
 from repro_torch.models.base import (ACT_QUANT_MODES, ActQuant, ArchConfig,
                                      pack_projections)
+from repro_torch.serving.kvpool import KVPool
+from repro_torch.serving.scheduler import ChunkedPrefillScheduler
 
 __all__ = ["Request", "ServeEngine"]
 
@@ -39,8 +50,6 @@ REASON_NAN_LOGITS = "nan_logits"
 
 # engine argument -> the ROADMAP item that ports it
 _NOT_PORTED = {
-    "kv_pool": "§1 item 7 (paged and chunked serving)",
-    "prefill_chunk": "§1 item 7 (paged and chunked serving)",
     "faults": "§1 item 9 (serving lifecycle)",
     "journal_dir": "§1 item 9 (serving lifecycle)",
     "hung_step_budget_ms": "§1 item 9 (serving lifecycle)",
@@ -58,8 +67,8 @@ class Request:
     generated: list = dataclasses.field(default_factory=list)
     done: bool = False
     finish_reason: str | None = None
-    # first greedy token, produced by the admission prefill and emitted by
-    # the first step()
+    # first greedy token, produced by the admission prefill (its last chunk
+    # when chunked) and emitted by the next step(); None while prefilling
     _next: int | None = None
 
 
@@ -145,15 +154,13 @@ class ServeEngine:
                  method: str = "mixfp4", kv_quant: str | None = None,
                  prefill_buckets: str | None = "auto", device="cuda",
                  act_quant: str | None = None, act_rht: bool = False,
-                 kv_pool: int | None = None,
+                 kv_pool: int | None = None, kv_page_len: int = 16,
                  prefill_chunk: int | None = None, faults=None,
                  journal_dir: str | None = None,
                  hung_step_budget_ms: float | None = None,
                  deadline_ms: float | None = None,
                  ttft_budget_ms: float | None = None, mesh=None):
-        given = {"kv_pool": kv_pool is not None,
-                 "prefill_chunk": prefill_chunk is not None,
-                 "faults": faults is not None,
+        given = {"faults": faults is not None,
                  "journal_dir": journal_dir is not None,
                  "hung_step_budget_ms": hung_step_budget_ms is not None,
                  "deadline_ms": deadline_ms is not None,
@@ -167,6 +174,15 @@ class ServeEngine:
         if kv_quant not in (None, "bf16", "mixfp4"):
             raise ValueError(f"unknown kv_quant {kv_quant!r} "
                              "(expected None, 'bf16' or 'mixfp4')")
+        if kv_pool is not None:
+            if kv_quant != "mixfp4":
+                raise ValueError(
+                    "kv_pool= is the paged *packed* KV path; it requires "
+                    f"kv_quant='mixfp4' (got {kv_quant!r})")
+            if kv_page_len % 16 or max_len % kv_page_len:
+                raise ValueError(
+                    f"kv_page_len={kv_page_len} must be a multiple of 16 "
+                    f"(the MixFP4 block) and divide max_len={max_len}")
         _validate_act(act_quant, act_rht, pack_weights)
         if not pack_weights:
             raise NotImplementedError(
@@ -174,6 +190,16 @@ class ServeEngine:
                 "(ROADMAP §1 item 10); serve packed weights")
         if prefill_buckets not in (None, "off", "auto", "pow2-64"):
             raise ValueError(f"unknown prefill_buckets {prefill_buckets!r}")
+        if prefill_chunk is not None:
+            if prefill_chunk < 1:
+                raise ValueError(
+                    f"prefill_chunk={prefill_chunk} must be >= 1 token")
+            if prefill_buckets == "pow2-64":
+                raise ValueError(
+                    "prefill_chunk= already runs every chunk at ONE "
+                    "static shape (the chunk budget); it replaces the "
+                    "prefill_buckets ladder — drop "
+                    "prefill_buckets='pow2-64'")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = build_model(cfg)
@@ -191,21 +217,40 @@ class ServeEngine:
         _check_rht_signs(self.params, act_rht)
         self.compression = (self.dense_bytes / self.packed_bytes
                             if self.packed_bytes else 1.0)
-        self.cache = self.model.init_cache(
-            batch_size, max_len, device=self.device,
-            kv_quant="mixfp4" if self.kv_quant == "mixfp4" else None)
+        # the paged pool (page 0 is its trash page) with prefix caching
+        self.kv_page_len = kv_page_len
+        if kv_pool is not None:
+            self.kv_pool = KVPool(kv_pool, kv_page_len)
+            self.cache = self.model.init_cache(
+                batch_size, max_len, device=self.device, kv_quant="mixfp4",
+                pages=(kv_pool, kv_page_len))
+            self._slot_pages: list[list[int] | None] = [None] * batch_size
+        else:
+            self.kv_pool = None
+            self.cache = self.model.init_cache(
+                batch_size, max_len, device=self.device,
+                kv_quant="mixfp4" if self.kv_quant == "mixfp4" else None)
         self.lengths = np.zeros((batch_size,), np.int32)
         self.slots: list[Request | None] = [None] * batch_size
+        if prefill_buckets == "auto":
+            prefill_buckets = "pow2-64" if prefill_chunk is None else None
         self.prefill_buckets = (None if prefill_buckets in (None, "off")
                                 else "pow2-64")
+        self.prefill_chunk = prefill_chunk
+        self.scheduler = (ChunkedPrefillScheduler(prefill_chunk)
+                          if prefill_chunk is not None else None)
         self.admissions = 0
         self.decode_steps = 0
+        self.prefill_dispatches = 0    # prefill passes (chunks included)
+        self.max_concurrent = 0        # peak occupied slots seen by step()
+        self._step_prefill_tokens = 0  # prompt tokens spent this step
 
     # ------------------------------------------------------------------
     def kv_cache_bytes(self) -> int:
-        """Device bytes of the KV cache (packed leaves count wire bytes)."""
+        """Device bytes of the KV cache (packed leaves count wire bytes; the
+        paged pool's block table counts too)."""
         total = 0
-        for leaf in (self.cache["k"], self.cache["v"]):
+        for leaf in self.cache.values():
             total += (leaf.nbytes if isinstance(leaf, qtensor.QTensor)
                       else leaf.numel() * leaf.element_size())
         return total
@@ -233,35 +278,92 @@ class ServeEngine:
                 f"request {req.uid} needs {len(req.prompt)} prompt + "
                 f"{req.max_new_tokens} new tokens but the cache holds "
                 f"max_len={self.max_len}")
+        if self.kv_pool is not None:
+            need = self.kv_pool.pages_needed(len(req.prompt),
+                                             req.max_new_tokens)
+            if need > self.kv_pool.pages_total:
+                raise ValueError(
+                    f"request {req.uid} needs {need} pool pages but the "
+                    f"pool holds {self.kv_pool.pages_total} (deferring it "
+                    "would livelock: no amount of draining frees enough)")
 
     def add_request(self, req: Request) -> bool:
-        """Admit ``req`` into a free slot (prefilling it now); False when
-        every slot is busy.  A prompt whose prefill logits are not finite
-        is admitted and ends at once (``finish_reason="nan_logits"``)."""
+        """Admit ``req`` into a free slot; False (and nothing consumed) when
+        every slot is busy or the pool cannot cover the request yet.
+        Without ``prefill_chunk`` the admission prefills now; with it the
+        prompt prefills one chunk per ``step()``.  A prompt whose prefill
+        logits are not finite ends at once (``finish_reason="nan_logits"``).
+        """
         self._validate(req)
-        free = next((i for i, s in enumerate(self.slots) if s is None), None)
-        if free is None:
+        i = next((i for i, s in enumerate(self.slots) if s is None), None)
+        if i is None:
             return False
-        self.slots[free] = req
-        self.lengths[free] = 0
-        self.cache = self.model.reset_slot(self.cache, free)
-        self._prefill_slot(free, req)
+        start = 0
+        if self.kv_pool is None:
+            self.cache = self.model.reset_slot(self.cache, i)
+        else:
+            # map cached prefix pages and allocate the rest (evicting LRU
+            # cached pages as needed); a pool that cannot cover the
+            # request defers it
+            adm = self.kv_pool.acquire(req.prompt, req.max_new_tokens)
+            if adm is None:
+                return False
+            self._slot_pages[i] = adm.pages
+            row = torch.zeros(self.cache["pages"].shape[1], dtype=torch.int32)
+            row[:len(adm.pages)] = torch.tensor(adm.pages, dtype=torch.int32)
+            self.cache["pages"][i] = row.to(self.device)
+            if adm.cow is not None:
+                self._cow_copy(*adm.cow)
+            start = adm.shared_len
+        self.slots[i] = req
+        # a chunked admission's length tracks its chunk cursor, so the
+        # batched decode's junk row for this lane lands at the next chunk's
+        # first row, which that chunk overwrites before anything reads it
+        self.lengths[i] = start
+        if self.scheduler is not None:
+            self.scheduler.enqueue(req.uid, i, req, len(req.prompt),
+                                   start_pos=start)
+            return True
+        logits = self._prefill_slot(i, req, start)
+        self._prefill_done(i, req, logits)
         return True
+
+    def _cow_copy(self, src: int, dst: int):
+        """The eager copy-on-write of a partial prefix hit: page ``src``'s
+        packed K and V bytes into page ``dst``, every layer."""
+        for leaf in (self.cache["k"], self.cache["v"]):
+            leaf.payload[:, dst] = leaf.payload[:, src]
+            leaf.scales[:, dst] = leaf.scales[:, src]
 
     def has_work(self) -> bool:
         return any(s is not None for s in self.slots)
 
-    def _prefill_slot(self, i: int, req: Request):
-        toks = np.asarray(req.prompt, np.int64)
-        s_len = len(toks)
+    def _prefill_slot(self, i: int, req: Request, start_pos: int = 0):
+        """One prefill pass over ``req.prompt[start_pos:]`` (the suffix
+        after a prefix hit), padded up the bucket ladder when bucketing;
+        returns its last real position's logits."""
+        toks = np.asarray(req.prompt, np.int64)[start_pos:]
+        s_len = len(toks)              # >= 1: a prefix hit stops at p - 1
         if self.prefill_buckets:
-            pb = self.bucket_len(s_len, self.max_len)
+            pb = self.bucket_len(s_len, self.max_len - start_pos)
             if pb > s_len:
                 toks = np.pad(toks, (0, pb - s_len))
+        return self._prefill(i, toks, s_len, start_pos)
+
+    def _prefill(self, i: int, toks: np.ndarray, n_real: int, start: int):
         tokens = torch.as_tensor(toks[None, :], device=self.device)
         logits, self.cache = self.model.prefill_slot(
-            self.params, tokens, self.cache, i, true_len=s_len, act=self.act)
-        self.lengths[i] = s_len
+            self.params, tokens, self.cache, i, true_len=n_real, act=self.act,
+            start_pos=start)
+        self.prefill_dispatches += 1
+        self._step_prefill_tokens += n_real
+        return logits
+
+    def _prefill_done(self, i: int, req: Request, logits: torch.Tensor):
+        """The admission's prompt is in the cache: stage its first token,
+        and register a paged prompt's pages for prefix hits (their bytes
+        are final now; eager COW means no shared page is written later)."""
+        self.lengths[i] = len(req.prompt)
         self.admissions += 1
         finite, nxt = torch.stack([torch.isfinite(logits[0]).all().long(),
                                    torch.argmax(logits[0])]).tolist()
@@ -271,23 +373,74 @@ class ServeEngine:
             self._finish(i, REASON_NAN_LOGITS)
             return
         req._next = nxt
+        if self.kv_pool is not None:
+            self.kv_pool.insert(req.prompt, self._slot_pages[i])
+
+    def _run_chunk(self):
+        """Spend this step's chunk budget on the FIFO-head prefill job: one
+        prefill pass of ``prefill_chunk`` prompt tokens from its cursor
+        (the final partial chunk pads up to the budget, never past
+        max_len)."""
+        job = self.scheduler.head()
+        if job is None:
+            return
+        req, i, start = job.req, job.slot, job.cursor
+        n_real = min(self.scheduler.chunk, job.p_len - start)
+        pad_to = min(self.scheduler.chunk, self.max_len - start)
+        toks = np.asarray(req.prompt, np.int64)[start:start + n_real]
+        if pad_to > n_real:
+            toks = np.pad(toks, (0, pad_to - n_real))
+        logits = self._prefill(i, toks, n_real, start)
+        if self.scheduler.advance(job, n_real):
+            self._prefill_done(i, req, logits)
+        else:
+            self.lengths[i] = job.cursor
 
     def _finish(self, i: int, reason: str):
+        """End slot ``i``'s request and free the slot.  A paged slot
+        releases its pages (tree-registered ones park in the LRU, still
+        servable as prefix hits) and points its table row at the trash
+        page, so the idle lane's decode writes never land in a page the
+        pool may grant again."""
         req = self.slots[i]
         req.done = True
         req.finish_reason = reason
         self.slots[i] = None
+        self.lengths[i] = 0
+        if self.kv_pool is not None:
+            self.kv_pool.release(self._slot_pages[i])
+            self._slot_pages[i] = None
+            self.cache["pages"][i] = 0
+
+    def pool_report(self) -> dict | None:
+        """Pool occupancy, prefix-hit and eviction counters (None when the
+        engine is not paged)."""
+        return None if self.kv_pool is None else self.kv_pool.stats()
+
+    def _note_step(self, decode_rows: int):
+        """The step's line of the scheduler's prefill-token ledger (the one
+        source of ``max_prefill_tokens_per_step``).  Admissions prefilled
+        between steps count toward the next step, whose decode they
+        delayed."""
+        spent, self._step_prefill_tokens = self._step_prefill_tokens, 0
+        if self.scheduler is not None:
+            self.scheduler.note_step(spent, decode_rows)
 
     def step(self) -> list[tuple[int, int]]:
-        """One decode step for every active slot, each at its own cache
-        position; returns the (uid, token) pairs emitted.  A freshly
-        prefilled request first emits its prefill token, then decodes.  A
-        row whose logits are not finite ends that request (no token)."""
+        """One chunk of the head prefill job (when chunking), then one
+        decode step for every running slot, each at its own cache position;
+        returns the (uid, token) pairs emitted.  A freshly prefilled
+        request first emits its prefill token, then decodes.  A row whose
+        logits are not finite ends that request (no token)."""
+        if self.scheduler is not None:
+            self._run_chunk()
+        self.max_concurrent = max(self.max_concurrent,
+                                  sum(r is not None for r in self.slots))
         toks = np.zeros((self.batch_size,), np.int64)
         out, active = [], []
         for i, req in enumerate(self.slots):
-            if req is None:
-                continue
+            if req is None or req._next is None:
+                continue               # free, or a chunked prefill's lane
             if not req.generated:
                 req.generated.append(req._next)
                 out.append((req.uid, req._next))
@@ -297,14 +450,14 @@ class ServeEngine:
             toks[i] = req.generated[-1]
             active.append(i)
         if not active:
+            self._note_step(0)
             return out
-        # idle lanes decode a dummy token at row 0 of their (free) slot,
-        # which the next admission zeroes
-        lens = np.zeros((self.batch_size,), np.int64)
-        lens[active] = self.lengths[active]
+        # every lane decodes at its own length: idle lanes at row 0 of
+        # their free slot (the trash page when paged), a lane still
+        # prefilling at its chunk cursor
         logits, self.cache = self.model.decode_step(
             self.params, torch.as_tensor(toks, device=self.device),
-            self.cache, torch.as_tensor(lens, device=self.device),
+            self.cache, torch.as_tensor(self.lengths, device=self.device),
             act=self.act)
         next_toks = torch.argmax(logits, dim=-1).cpu().numpy()
         finite = torch.isfinite(logits).all(dim=-1).cpu().numpy()
@@ -320,4 +473,5 @@ class ServeEngine:
             out.append((req.uid, tok))
             if len(req.generated) >= req.max_new_tokens:
                 self._finish(i, REASON_MAX_NEW)
+        self._note_step(len(active))
         return out

@@ -100,6 +100,22 @@ def test_launch_serve_runs_on_cpu_when_asked(capsys):
     assert "act_quant=mixfp4, act_rht=True" in out
     with pytest.raises(SystemExit):
         serve.main(["--smoke", "--device", "cpu", "--act-rht"])
+    serve.main(["--smoke", "--device", "cpu", "--kv-quant", "mixfp4",
+                "--kv-pool", "9", "--kv-page-len", "16", "--prefill-chunk",
+                "4", "--requests", "3", "--batch", "2", "--new-tokens", "3",
+                "--max-len", "32"])
+    out = capsys.readouterr().out
+    assert "3 requests, 9 tokens" in out
+    assert "chunked-prefill scheduler armed" in out
+    assert "KV pool: 8 pages x 16 rows" in out
+    assert "prefix hits 0 pages" not in out       # the shared page hits
+    with pytest.raises(ValueError, match="kv_quant"):
+        serve.main(["--smoke", "--device", "cpu", "--kv-pool", "9"])
+    with pytest.raises(ValueError, match="multiple of 16"):
+        serve.main(["--smoke", "--device", "cpu", "--kv-quant", "mixfp4",
+                    "--kv-pool", "9", "--kv-page-len", "8"])
+    with pytest.raises(ValueError, match=">= 1"):
+        serve.main(["--smoke", "--device", "cpu", "--prefill-chunk", "-1"])
 
 
 def test_kernel_wrappers_reject_other_devices():

@@ -9,7 +9,8 @@ it runs on a machine that has only PyTorch and the CUDA toolkit:
 Tolerances: quantizer and RHT bitwise; W4A16 and W4A4 1e-3 of max|plain|
 (the two sum the same exact bf16 products in f32, in different orders);
 attention 1e-4; the fused W4A4 kernel bitwise equal to the quantizer
-followed by the packed W4A4 kernel on the card.
+followed by the packed W4A4 kernel on the card; the paged attention
+kernel bitwise equal to the fixed-slot one on the gathered rows.
 """
 import numpy as np
 import pytest
@@ -167,6 +168,86 @@ def test_attn_kernel_vs_plain(cuda, case):
     assert float((got.cpu() - want).abs().max()) <= 1e-4
 
 
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_paged_attn_kernel_bitwise_vs_fixed(cuda, case):
+    """The rows of a fixed cache scattered over a permuted pool (junk wire
+    bytes in the trash page 0, which the tables' unused tail points at):
+    the paged kernel equals the fixed kernel bit for bit."""
+    b, s, hkv, g, dh, window, softcap = case
+    page_len = 16
+    gen = torch.Generator().manual_seed(s + 1)
+    q = torch.randn(b, hkv * g, dh, generator=gen)
+    fixed = [*quantize_kv_rows(torch.randn(b, s, hkv, dh, generator=gen)),
+             *quantize_kv_rows(torch.randn(b, s, hkv, dh, generator=gen))]
+    lengths = torch.randint(1, s + 1, (b,), generator=gen,
+                            dtype=torch.int32)
+    mp = -(-s // page_len)
+    n_used = -(-lengths // page_len)
+    perm = 1 + torch.randperm(b * mp, generator=gen)
+    bt = torch.zeros(b, mp, dtype=torch.int32)
+    junk = quantize_kv_rows(40 * torch.randn(page_len, hkv, dh,
+                                             generator=gen))
+    slabs = []
+    for a, j in zip(fixed, (*junk, *junk)):
+        slab = torch.zeros((1 + b * mp, page_len, *a.shape[2:]), dtype=a.dtype)
+        slab[0] = j
+        slabs.append(slab)
+    for i in range(b):
+        for p in range(int(n_used[i])):
+            bt[i, p] = perm[i * mp + p]
+            rows = slice(p * page_len, min((p + 1) * page_len, s))
+            for slab, a in zip(slabs, fixed):
+                slab[bt[i, p], :rows.stop - rows.start] = a[i, rows]
+    got = mixfp4_attn.mixfp4_attn_decode_paged(
+        q.to(cuda), *[a.to(cuda) for a in slabs], bt.to(cuda),
+        lengths.to(cuda), window=window, softcap=softcap)
+    want = mixfp4_attn.mixfp4_attn_decode(
+        q.to(cuda), *[a.to(cuda) for a in fixed], lengths.to(cuda),
+        window=window, softcap=softcap)
+    assert torch.equal(got, want)
+    plain = mixfp4_attn.attn_decode_paged_plain(q, *slabs, bt, lengths,
+                                                window=window,
+                                                softcap=softcap)
+    assert float((got.cpu() - plain).abs().max()) <= 1e-4
+
+
+def test_paged_chunked_engine_on_the_card_launches_the_paged_kernel(cuda):
+    """Paged + chunked serving: every decode pass launches the paged
+    attention kernel once per layer and never the fixed one, and the
+    streams equal the fixed-slot whole-prompt engine's."""
+    cfg = configs.smoke_config("gemma2-2b")
+    params = build_model(cfg).init(0, device=cuda)
+    shared = list(range(1, 18))
+    prompts = [np.array(shared + [40 + i] * (2 + 3 * i), np.int32)
+               for i in range(4)]
+    streams, counts = [], []
+    for kw in ({}, {"kv_pool": 17, "prefill_chunk": 8}):
+        eng = ServeEngine(cfg, params, batch_size=2, max_len=64,
+                          kv_quant="mixfp4", device=cuda, **kw)
+        ops.reset_launch_counts()
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=5)
+                for i, p in enumerate(prompts)]
+        pending = list(reqs)
+        while pending or eng.has_work():
+            while pending and eng.add_request(pending[0]):
+                pending.pop(0)
+            eng.step()
+        streams.append([r.generated for r in reqs])
+        counts.append((ops.launch_counts(), eng))
+    assert streams[0] == streams[1]
+    got, eng = counts[1]
+    n_l = cfg.n_layers
+    passes = eng.prefill_dispatches + eng.decode_steps
+    assert eng.pool_report()["prefix_hits"] > 0
+    assert got == {
+        "mixfp4_quant_rows": 2 * n_l * passes,
+        "mixfp4_gemm_w4a16": 7 * n_l * passes,
+        "mixfp4_attn_decode": 0,
+        "mixfp4_attn_decode_paged": n_l * eng.decode_steps,
+        "mixfp4_gemm_w4a4": 0, "mixfp4_gemm_w4a4_fused": 0,
+        "fwht_rows": 0}
+
+
 def test_engine_on_the_card_launches_every_kernel(cuda):
     """A served decode step costs 7 W4A16 GEMMs, one attention and two
     quantizer launches per layer; a prefill 7 GEMMs and 2 quantizer
@@ -190,6 +271,7 @@ def test_engine_on_the_card_launches_every_kernel(cuda):
         "mixfp4_quant_rows": 2 * n_l * passes,
         "mixfp4_gemm_w4a16": 7 * n_l * passes,
         "mixfp4_attn_decode": n_l * eng.decode_steps,
+        "mixfp4_attn_decode_paged": 0,
         "mixfp4_gemm_w4a4": 0, "mixfp4_gemm_w4a4_fused": 0,
         "fwht_rows": 0}
 
@@ -218,6 +300,7 @@ def test_w4a4_rht_engine_on_the_card_launches_its_kernels(cuda):
         "mixfp4_quant_rows": 2 * n_l * passes,
         "mixfp4_gemm_w4a16": 0,
         "mixfp4_attn_decode": n_l * eng.decode_steps,
+        "mixfp4_attn_decode_paged": 0,
         "mixfp4_gemm_w4a4": 0,
         "mixfp4_gemm_w4a4_fused": 7 * n_l * passes,
         "fwht_rows": 7 * n_l * passes}

@@ -157,8 +157,9 @@ def test_kv_cache_bytes_and_packing_match_reference(jax_engine, packed):
         jax_engine.params)
 
 
-@pytest.mark.parametrize("kw", [{"ttft_budget_ms": 5.0}, {"kv_pool": 8},
-                                {"prefill_chunk": 16}, {"deadline_ms": 5.0},
+@pytest.mark.parametrize("kw", [{"ttft_budget_ms": 5.0}, {"faults": object()},
+                                {"hung_step_budget_ms": 5.0},
+                                {"deadline_ms": 5.0},
                                 {"journal_dir": "j"}, {"mesh": object()}])
 def test_unported_options_raise(packed, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
