@@ -12,13 +12,17 @@ Phases (any failed check raises, so the script exits non-zero):
    packed W4A4 kernel bitwise;
    the paged attention kernel must equal the fixed one bitwise, and the
    fixed one its output digest from before the two shared a template;
+   every GEMM's rows must be bitwise independent of M, across its decode
+   (M <= 64, split K reduced in the launch) and prefill variants, and
+   repeat calls bitwise equal;
 3. serve six greedy requests (four share a 1000-token prefix; one prompt
    of 4500 tokens) through ``ServeEngine`` for gemma2-2b at full width
    (26 layers, packed MixFP4 weights from seeded random values, packed
    MixFP4 KV cache) on the W4A16 path with whole-prompt prefill, check
    that every launch counter equals what the path implies, then trace five
    decode steps at ~1024 tokens of context with ``torch.profiler`` (device
-   time by kernel, device-busy share);
+   time by kernel, device-busy share; exactly one decode-variant GEMM
+   launch per projection and no memset in the trace);
 3c. the same requests and weights through the paged pool (2049 pages of
    16 rows, prefix caching) with 512-token chunked prefill: the streams
    must equal phase 3's token for token, with prefix hits and COW copies;
@@ -41,6 +45,7 @@ JSON object with one entry per kernel; the last line is
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import os
@@ -60,7 +65,9 @@ GEMMA_PAIRS = [(2304, 2048), (2304, 1024), (2048, 2304), (2304, 9216),
 # one decode layer's projections: wq, wk, wv, wo, w_gate, w_up, w_down
 LAYER = [(2304, 2048), (2304, 1024), (2304, 1024), (2048, 2304),
          (2304, 9216), (2304, 9216), (9216, 2304)]
-CHECK_MS = (1, 4, 64, 4544)    # decode batches and a 4544-row prefill
+# decode batches on both sides of the decode variant's M <= 64 (and its
+# three row-tile counts), and a 4544-row prefill
+CHECK_MS = (1, 4, 16, 32, 64, 65, 4544)
 PREFILL_M = 4544
 
 
@@ -68,16 +75,35 @@ def log(msg: str):
     print(msg, flush=True)
 
 
-def bench(fn, reps: int = 20, flush: torch.Tensor | None = None) -> float:
+def bench(fn, reps: int = 20, flush: torch.Tensor | None = None,
+          keep_ahead: bool = False) -> float:
     """Median ms of ``fn`` on the card by CUDA events, after a warm-up.
     ``flush`` (a large buffer) is rewritten before each rep so the L2 cache
-    is cold, as it is for the weights on the served path."""
+    is cold, as it is for the weights on the served path.  The events
+    bracket the host's enqueue of ``fn`` as well as the card's work, so
+    work that the card runs faster than the host enqueues it times the
+    host.  ``keep_ahead`` first has the stream sleep on the card for twice
+    the host time ``fn`` takes to enqueue its work, so the events time the
+    card's work alone (the GEMM layers report both)."""
     fn()
     torch.cuda.synchronize()
+    sleep = 0
+    if keep_ahead:
+        t = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        torch.cuda._sleep(1 << 22)
+        torch.cuda.synchronize()
+        cycles_per_s = (1 << 22) / (time.perf_counter() - t)
+        sleep = int(min(2 * host_s, 0.1) * cycles_per_s)
     times = []
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
+        if sleep:
+            torch.cuda._sleep(sleep)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -85,6 +111,19 @@ def bench(fn, reps: int = 20, flush: torch.Tensor | None = None) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Median host ms to enqueue ``fn``'s work (the card idle before each
+    rep): what the wrappers cost the host-bound decode step."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -156,7 +195,7 @@ def check_gemm(dev, flush) -> dict:
         weights[(k, n)] = qtensor.quantize(
             w, qtensor.QuantSpec("mixfp4", qtensor.BlockLayout2D()))
         qt = weights[(k, n)]
-        for m in (1, 4, 64, 4544):
+        for m in CHECK_MS:
             x = torch.randn(m, k, device=dev, generator=gen)
             y = G.mixfp4_gemm_w4a16(x, qt.payload, qt.scales, qt.scale32)
             yp = G.gemm_w4a16_plain(x, qt.payload, qt.scales, qt.scale32, n)
@@ -166,7 +205,7 @@ def check_gemm(dev, flush) -> dict:
             if not err <= 1e-3:
                 raise AssertionError(f"W4A16 K={k} N={n} M={m}: normalised "
                                      f"error {err}")
-    log(f"[w4a16] 5 (K, N) pairs x M in (1, 4, 64, 4544): max error "
+    log(f"[w4a16] 5 (K, N) pairs x M in {CHECK_MS}: max error "
         f"normalised by max|plain| {worst:.3e} (tolerance 1e-3)")
 
     # one decode layer at M = 4
@@ -189,6 +228,8 @@ def check_gemm(dev, flush) -> dict:
     ms = bench(kern, 20, flush)
     plain_ms = bench(plain, 10, flush)
     lib_ms = bench(lib, 20, flush)
+    dev_ms = bench(kern, 20, flush, keep_ahead=True)
+    lib_dev_ms = bench(lib, 20, flush, keep_ahead=True)
     n_bytes = sum(k * n / 2 + k * n / 256 + m * k * 2 + m * n * 4
                   for k, n in layer)
     n_ops = sum(2 * m * k * n for k, n in layer)
@@ -202,14 +243,19 @@ def check_gemm(dev, flush) -> dict:
             f"({2 * 4544 * k * n / t / 1e9:.1f} TFLOP/s)")
     log(f"[w4a16] one decode layer (7 projections, M=4): kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, torch.matmul on the decoded bf16 weight "
-        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); with the host "
+        f"kept ahead (card time alone): kernel {dev_ms:.4f} ms, "
+        f"torch.matmul {lib_dev_ms:.4f} ms; host time to enqueue the 7: "
+        f"kernel wrappers {host_ms(kern):.4f} ms, torch.matmul "
+        f"{host_ms(lib):.4f} ms")
     return {"name": "mixfp4_gemm_w4a16", "route": "cuda",
             "source": "src/repro_torch/csrc/mixfp4_gemm_w4a16.cu",
             "replaces": "src/repro/kernels/mixfp4_gemm.py:300",
             "max_abs_err": worst, "tolerance": "1e-3 of max|plain|",
             "shape": "7 projections of one layer, M=4",
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms}
+            "bound_by": b_by, "library_ms": lib_ms, "device_ms": dev_ms,
+            "library_device_ms": lib_dev_ms}
 
 
 def check_attn(dev, flush) -> dict:
@@ -508,6 +554,9 @@ def check_w4a4(dev, flush) -> list[dict]:
         ("packed", packed, 20), ("packed_plain", packed_plain, 10),
         ("fused", fused, 20), ("fused_plain", fused_plain, 5),
         ("lib", lib, 20))}
+    times |= {f"{name}_dev": bench(fn, 20, flush, keep_ahead=True)
+              for name, fn in (("packed", packed), ("fused", fused),
+                               ("lib", lib))}
     w_bytes = sum(k * n / 2 + k * n / 256 + m * n * 4 for k, n in LAYER)
     n_ops = sum(2 * m * k * n for k, n in LAYER)
     b_packed = bound(w_bytes + sum(m * (k / 2 + k / 16) for k, _ in LAYER),
@@ -535,21 +584,28 @@ def check_w4a4(dev, flush) -> list[dict]:
         f"({b_packed[1]}); fused + RHT kernel {times['fused']:.4f} ms, plain "
         f"{times['fused_plain']:.4f} ms, bound {b_fused[0]:.4f} ms "
         f"({b_fused[1]}); torch.matmul on the decoded bf16 operands "
-        f"{times['lib']:.4f} ms")
+        f"{times['lib']:.4f} ms; with the host kept ahead (card time "
+        f"alone): packed {times['packed_dev']:.4f} ms, fused + RHT "
+        f"{times['fused_dev']:.4f} ms, torch.matmul {times['lib_dev']:.4f} "
+        f"ms; host time to enqueue the 7: packed "
+        f"{host_ms(packed):.4f} ms, fused + RHT {host_ms(fused):.4f} ms")
     common = {"route": "cuda",
               "source": "src/repro_torch/csrc/mixfp4_gemm_w4a4.cu",
-              "tolerance": "1e-3 of max|plain|", "library_ms": times["lib"]}
+              "tolerance": "1e-3 of max|plain|", "library_ms": times["lib"],
+              "library_device_ms": times["lib_dev"]}
     return [dict(common, name="mixfp4_gemm_w4a4",
                  replaces="src/repro/kernels/mixfp4_gemm.py:330",
                  max_abs_err=worst["packed"],
                  shape="7 projections of one layer, M=4, per-row scales",
-                 ms=times["packed"], plain_ms=times["packed_plain"],
+                 ms=times["packed"], device_ms=times["packed_dev"],
+                 plain_ms=times["packed_plain"],
                  bound_ms=b_packed[0], bound_by=b_packed[1]),
             dict(common, name="mixfp4_gemm_w4a4_fused",
                  replaces="src/repro/kernels/mixfp4_gemm.py:380",
                  max_abs_err=worst["fused"],
                  shape="7 projections of one layer, M=4, per-row + RHT",
-                 ms=times["fused"], plain_ms=times["fused_plain"],
+                 ms=times["fused"], device_ms=times["fused_dev"],
+                 plain_ms=times["fused_plain"],
                  bound_ms=b_fused[0], bound_by=b_fused[1])]
 
 
@@ -560,6 +616,148 @@ def _gemm_err(y, yp, what: str, k: int, n: int, m: int) -> float:
         raise AssertionError(f"{what} K={k} N={n} M={m}: normalised error "
                              f"{err}")
     return err
+
+
+# held against M = 4: the decode variant's three row-tile counts (M <= 16,
+# <= 32, <= 64), the prefill tile just past it, and a whole prompt
+INVARIANCE_MS = (1, 16, 32, 64, 65, PREFILL_M)
+
+
+def check_m_invariance(dev):
+    """Rows bitwise independent of M, and repeat calls bitwise equal, for
+    the three GEMMs on every gemma2-2b (K, N) pair: the first rows of a
+    call at M = 4 (the decode variant) must equal the same rows of calls at
+    M in INVARIANCE_MS, across the decode/prefill boundary.  Row scales
+    come from each row alone; a per-tensor scale is computed once from all
+    4544 rows and shared by every call."""
+    from repro_torch.core import qtensor, scaling
+    from repro_torch.kernels import fwht
+    from repro_torch.kernels import mixfp4_gemm as G
+    from repro_torch.models.base import rht_signs_on_grid
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    n_cases = 0
+    for k, n in GEMMA_PAIRS:
+        w = torch.randn(k, n, device=dev, generator=gen) / math.sqrt(k)
+        qt = qtensor.quantize(
+            w, qtensor.QuantSpec("mixfp4", qtensor.BlockLayout2D()))
+        x = _rows_like_activations(PREFILL_M, k, dev, gen)
+        sg = rht_signs_on_grid(k, k, dev)
+        q_t = qtensor.quantize_rows(x)
+        q_r = qtensor.quantize_rows(x, per_row=True)
+        s_t = scaling.tensor_scale(x)
+        s_r = scaling.row_scale(x)
+        s_h = scaling.row_scale(fwht.fwht_rows(x, sg))
+        calls = {
+            "w4a16": lambda m: G.mixfp4_gemm_w4a16(
+                x[:m], qt.payload, qt.scales, qt.scale32),
+            "w4a4 per tensor": lambda m: G.mixfp4_gemm_w4a4(
+                q_t.payload[:m], q_t.scales[:m], q_t.scale32, qt.payload,
+                qt.scales, qt.scale32),
+            "w4a4 per row": lambda m: G.mixfp4_gemm_w4a4(
+                q_r.payload[:m], q_r.scales[:m], q_r.scale32[:m],
+                qt.payload, qt.scales, qt.scale32, per_row=True),
+            "fused per tensor": lambda m: G.mixfp4_gemm_w4a4_fused(
+                x[:m], s_t, qt.payload, qt.scales, qt.scale32),
+            "fused per row": lambda m: G.mixfp4_gemm_w4a4_fused(
+                x[:m], s_r[:m], qt.payload, qt.scales, qt.scale32,
+                per_row=True),
+            "fused per row + RHT": lambda m: G.mixfp4_gemm_w4a4_fused(
+                x[:m], s_h[:m], qt.payload, qt.scales, qt.scale32,
+                per_row=True, rht_signs=sg),
+        }
+        for name, fn in calls.items():
+            ref = fn(4)
+            for m in (4, 64):
+                if not torch.equal(fn(m), fn(m)):
+                    raise AssertionError(f"{name} K={k} N={n} M={m}: two "
+                                         "identical calls differ")
+            for m in INVARIANCE_MS:
+                r = min(m, 4)
+                if not torch.equal(fn(m)[:r], ref[:r]):
+                    raise AssertionError(f"{name} K={k} N={n}: rows of the "
+                                         f"M={m} call differ from M=4's")
+                n_cases += 1
+    torch.cuda.synchronize()
+    one_launch(calls)
+    log(f"[m-invariance] W4A16, packed W4A4 (per tensor, per row), fused "
+        f"W4A4 (per tensor, per row, per row + RHT) on {len(GEMMA_PAIRS)} "
+        f"(K, N) pairs: the first rows of M in {INVARIANCE_MS} bitwise "
+        f"M=4's in {n_cases}/{n_cases} cases; repeat calls at M=4 and 64 "
+        f"bitwise equal")
+
+
+# host idle time between the profiler's start of recording and the first
+# traced call
+TRACE_PAD_S = 0.05
+
+
+def traced(fn, n: int):
+    """Call ``fn`` once as the profiler's warm-up, then ``n`` times traced
+    by ``torch.profiler`` (CPU and CUDA activity), the card synchronised
+    after each call.  Returns the profile, the host ms of each traced call
+    and of the traced window, and the wrappers' launches in that window.
+    The profiler loses the records of kernels launched in the first few
+    hundred microseconds after its recording starts, now and then, even
+    after a warm-up call (``decode_study.py trace-clock``: 12 of 600
+    one-call windows short without a pad at the start, none of 600 with
+    one), so the host idles ``TRACE_PAD_S`` before the first traced
+    call."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.kernels import ops
+
+    call_ms = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=n,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(TRACE_PAD_S)
+        before = ops.launch_counts()
+        t_win = time.perf_counter()
+        for i in range(n):
+            t = time.perf_counter()
+            fn()
+            call_ms.append((time.perf_counter() - t) * 1e3)
+            torch.cuda.synchronize()
+            if i < n - 1:
+                prof.step()
+        win_ms = (time.perf_counter() - t_win) * 1e3
+        after = ops.launch_counts()
+    launched = {k: v - before[k] for k, v in after.items() if v - before[k]}
+    return prof, call_ms, win_ms, launched
+
+
+def kernel_rows(prof) -> list:
+    """The device rows of a profile that are kernels (or memsets, copies),
+    not the GPU-side spans of annotations such as ``ProfilerStep#``."""
+    from torch.autograd import DeviceType
+
+    return [ev for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)
+            and not ev.key.startswith("ProfilerStep")]
+
+
+def one_launch(calls: dict):
+    """Trace one decode-M call of each GEMM alone: the card must run one
+    kernel of the GEMM sources, the decode variant, and no memset (the
+    split partials are reduced inside that launch)."""
+    others = set()
+    for name, fn in calls.items():
+        prof = traced(lambda: fn(4), 1)[0]
+        rows = {ev.key: ev.count for ev in kernel_rows(prof)}
+        gemm = {k: c for k, c in rows.items() if "w4a" in k}
+        bad = [k for k in rows if "memset" in k.lower()]
+        if list(gemm.values()) != [1] or bad or \
+                "_decode_kernel" not in next(iter(gemm)):
+            raise AssertionError(f"{name} at M=4 ran {rows}")
+        others |= {k[:40] for k in rows if k not in gemm}
+    log(f"[one-launch] each GEMM at M=4, traced alone: one decode-variant "
+        f"kernel, no memset; other device rows (the wrappers' scale "
+        f"arithmetic): {sorted(others)}")
 
 
 def check_fwht(dev, flush) -> dict:
@@ -743,14 +941,16 @@ def serve_path(dev, seed: int, tag: str, params=None, **kw) -> dict:
             "streams": {r.uid: list(r.generated) for r in reqs}}
 
 
+# the operators of a decode step whose PyTorch kernels include a memset
+# (greedy sampling and the finite-logits check); none is in a GEMM wrapper
+STEP_MEMSET_OPS = {"aten::argmax", "aten::all"}
+
+
 def profile_decode(engine, seed: int, tag: str):
     """Fill every slot with a 1024-token prompt, then trace five decode
     steps with ``torch.profiler``: device time by kernel, and the share of
     the traced window in which the device was busy.  A chunked engine
     first runs every prefill chunk, so the window holds decode only."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.serving.engine import Request
 
     steps = 5
@@ -767,32 +967,46 @@ def profile_decode(engine, seed: int, tag: str):
         engine.step()
     if engine.scheduler is not None and engine.scheduler.pending_jobs:
         raise AssertionError("prefill chunks left in the traced window")
-    torch.cuda.synchronize()
-    step_ms = []
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t_win = time.perf_counter()
-        for _ in range(steps):
-            t = time.perf_counter()
-            engine.step()
-            step_ms.append((time.perf_counter() - t) * 1e3)
-        torch.cuda.synchronize()
-        win_ms = (time.perf_counter() - t_win) * 1e3
+    prof, step_ms, win_ms, wrapped = traced(engine.step, steps)
     while engine.has_work():
         engine.step()
     # device rows only: an aten:: row also carries the device time of the
     # kernels it launched, and those have rows of their own
     by_kernel = {ev.key: (ev.self_device_time_total / 1e3 / steps,
                           ev.count // steps)
-                 for ev in prof.key_averages()
-                 if ev.device_type == DeviceType.CUDA
-                 and ev.self_device_time_total > 0}
+                 for ev in kernel_rows(prof) if ev.self_device_time_total > 0}
     busy = sum(ms for ms, _ in by_kernel.values()) * steps
+    # one GEMM launch per projection, all of them the decode variant (a
+    # second kernel of the GEMM sources, such as a split reduction, would
+    # show as another w4a* row); the memsets of the step, by the operator
+    # that launched them (phase 2 traces one call of each GEMM alone)
+    rows = {ev.key: ev.count for ev in kernel_rows(prof)}
+    gemm = {key: c for key, c in rows.items()
+            if "w4a16_" in key or "w4a4_" in key}
+    n_gemm = sum(gemm.values())
+    want = 7 * engine.cfg.n_layers * steps
+    memsets = collections.Counter(
+        ev.name for ev in prof.events() for kern in ev.kernels
+        if "memset" in kern.name.lower())
+    trace_rows = {k: sum(c for key, c in rows.items() if k in key)
+                  for k in ("w4a16_", "w4a4_", "attn_decode_kernel",
+                            "quant_rows_kernel", "fwht_rows_kernel")}
+    log(f"[profile] {tag} launches in the window: wrappers {wrapped}; "
+        f"trace rows {trace_rows}")
+    if n_gemm != want or not all("_decode_kernel" in key for key in gemm):
+        raise AssertionError(f"{tag} traced GEMM rows {gemm} ({n_gemm}, "
+                             f"expected {want} decode-variant launches)")
+    if not set(memsets) <= STEP_MEMSET_OPS:
+        raise AssertionError(f"{tag} memsets by {dict(memsets)}: only the "
+                             f"step's {sorted(STEP_MEMSET_OPS)} may launch "
+                             "one")
     log(f"[profile] {tag} B={engine.batch_size}, ~1024 tokens of context: "
         f"{steps} decode steps, median {statistics.median(step_ms):.2f} "
         f"ms/step; "
         f"device busy {busy:.2f} of {win_ms:.2f} ms "
-        f"({100 * busy / win_ms:.1f} %)")
+        f"({100 * busy / win_ms:.1f} %); {n_gemm // steps} GEMM launches "
+        f"per step, all decode-variant; memsets over the {steps} steps by "
+        f"launching operator {dict(memsets)}")
     for name, (ms, calls) in sorted(by_kernel.items(),
                                     key=lambda kv: -kv[1][0])[:12]:
         log(f"[profile] {ms:9.4f} ms/step {calls:5d} launches/step  "
@@ -1038,6 +1252,7 @@ def main():
                check_attn(dev, flush), *check_w4a4(dev, flush),
                check_fwht(dev, flush), check_attn_paged(dev, flush)]
     del flush
+    check_m_invariance(dev)
     # each kernel's launches: from the path run that drives it
     fixed = serve_path(dev, args.seed, "[serve]")
     paged = serve_path(dev, args.seed, "[serve-paged]",

@@ -1,0 +1,365 @@
+"""Decode-step studies of the PyTorch/CUDA port on one GPU.
+
+Three commands, each for one CUDA device:
+
+``ab --parent DIR [--rounds R]``
+    Parent against change in alternating turns (parent, change, change,
+    parent, R times over), each turn a fresh process on the same card.
+    DIR holds another checkout of the repo (``git archive <commit> | tar
+    -x -C DIR``, inside a directory that ``.gitignore`` lists); the change
+    is the checkout holding this script.  A turn measures, for gemma2-2b
+    at full width with seeded random weights: the host time the GEMM
+    wrappers take to enqueue one decode layer's 7 projections at M = 4
+    (W4A16, and fused W4A4 + RHT), the card idle before each rep; and the
+    decode step time at B = 4 over four 1024-token prompts of the
+    fixed-slot W4A16 engine, the paged W4A16 engine with 512-token chunked
+    prefill, and the fixed-slot W4A4 + RHT engine.  Prints one JSON line
+    per turn and a summary of medians by tree.
+
+``trace-drops [--windows N]``
+    Traces N windows of five W4A4 + RHT decode steps (the engine of
+    ``chip_smoke.py`` phase 3b) with ``torch.profiler``, alternately with
+    the profiler started cold at the window and after a warm-up step
+    (``schedule(warmup=1, active=5)``, as ``chip_smoke.py`` traces), and
+    compares every window's kernel rows with the wrappers' launch counts
+    (a row missing from a trace is a record the profiler lost) and the
+    windows' device row totals (every step runs the same kernels).
+
+``trace-clock [--windows N]``
+    Traces N windows of one decode-M GEMM call each (W4A16, then fused
+    W4A4 + RHT, alternately), every window after a warm-up call, in two
+    arms: the first call right after the profiler starts recording, or
+    after the host idles ``--pad`` seconds (as ``chip_smoke.py`` traces).  Per window: the device kernel rows against the two the
+    call launches, and the times from the window's start to its first
+    kernel and from its last kernel to the window's end, on the
+    profiler's clock for the kernels and the host's for the window.
+
+  python3 decode_study.py ab --parent build/parent --rounds 2
+  python3 decode_study.py trace-drops --windows 24
+  python3 decode_study.py trace-clock --windows 200
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+# one decode layer's projections: wq, wk, wv, wo, w_gate, w_up, w_down
+LAYER = [(2304, 2048), (2304, 1024), (2304, 1024), (2048, 2304),
+         (2304, 9216), (2304, 9216), (9216, 2304)]
+ENGINES = {                       # name -> ServeEngine options
+    "w4a16": {},
+    "w4a16_paged": {"kv_pool": 2049, "kv_page_len": 16, "prefill_chunk": 512},
+    "w4a4_rht": {"act_quant": "mixfp4", "act_rht": True},
+}
+
+
+def log(msg: str):
+    print(msg, flush=True)
+
+
+def _import_tree(tree: Path):
+    """Import ``repro_torch`` from ``tree``'s ``src`` and build its
+    kernels there."""
+    sys.path.insert(0, str(tree / "src"))
+    import repro_torch
+    from repro_torch.kernels import build
+    if Path(repro_torch.__file__).resolve().parents[2] != tree.resolve():
+        raise RuntimeError(f"repro_torch came from {repro_torch.__file__}, "
+                           f"not from {tree}")
+    build.build_all()
+
+
+def _engine(dev, seed: int, new_tokens: int, **kw):
+    """A gemma2-2b engine at full width, B = 4, every slot holding a
+    1024-token prompt, past its prefill and first decode steps."""
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    cfg = configs.config("gemma2-2b")
+    engine = ServeEngine(cfg, build_model(cfg).init(seed, device=dev),
+                         batch_size=4, max_len=8192, kv_quant="mixfp4",
+                         device=dev, **kw)
+    chunk_steps = (0 if engine.scheduler is None
+                   else engine.batch_size * -(-1024 // engine.prefill_chunk))
+    rng = np.random.RandomState(seed + 2)
+    for i in range(engine.batch_size):
+        if not engine.add_request(Request(
+                uid=i, prompt=rng.randint(0, cfg.vocab, 1024).astype(np.int32),
+                max_new_tokens=new_tokens + chunk_steps + 8)):
+            raise AssertionError("requests were not admitted")
+    for _ in range(3 + chunk_steps):
+        engine.step()
+    if engine.scheduler is not None and engine.scheduler.pending_jobs:
+        raise AssertionError("prefill chunks left")
+    torch.cuda.synchronize()
+    return engine
+
+
+def _wrapper_host_ms(dev, seed: int, reps: int = 50) -> dict:
+    """Median host ms to enqueue one decode layer's 7 GEMM calls at M = 4,
+    the card idle before each rep."""
+    from repro_torch.core import qtensor, scaling
+    from repro_torch.kernels import fwht
+    from repro_torch.kernels import mixfp4_gemm as G
+    from repro_torch.models.base import rht_signs_on_grid
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = {kn: qtensor.quantize(
+        torch.randn(*kn, device=dev, generator=gen) / math.sqrt(kn[0]),
+        qtensor.QuantSpec("mixfp4", qtensor.BlockLayout2D()))
+        for kn in set(LAYER)}
+    xs = {k: torch.randn(4, k, device=dev, generator=gen)
+          for k in (2048, 2304, 9216)}
+    sg = {k: rht_signs_on_grid(k, k, dev) for k in xs}
+    rs = {k: scaling.row_scale(fwht.fwht_rows(x, sg[k]))
+          for k, x in xs.items()}
+    calls = {
+        "w4a16": lambda: [G.mixfp4_gemm_w4a16(
+            xs[k], w[(k, n)].payload, w[(k, n)].scales, w[(k, n)].scale32)
+            for k, n in LAYER],
+        "w4a4_rht": lambda: [G.mixfp4_gemm_w4a4_fused(
+            xs[k], rs[k], w[(k, n)].payload, w[(k, n)].scales,
+            w[(k, n)].scale32, per_row=True, rht_signs=sg[k])
+            for k, n in LAYER],
+    }
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        out[name] = statistics.median(times)
+    return out
+
+
+def turn(tree: Path, seed: int, steps: int) -> dict:
+    """One turn of ``ab``: wrapper host ms and decode step ms of ``tree``."""
+    _import_tree(tree)
+    dev = torch.device("cuda")
+    res = {"tree": str(tree), "host_ms": _wrapper_host_ms(dev, seed),
+           "step_ms": {}}
+    for name, kw in ENGINES.items():
+        engine = _engine(dev, seed, steps, **kw)
+        times = []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            engine.step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        res["step_ms"][name] = statistics.median(times)
+        del engine
+        torch.cuda.empty_cache()
+    return res
+
+
+def ab(parent: Path, rounds: int, seed: int, steps: int):
+    trees = {"parent": parent.resolve(), "change": ROOT}
+    results = {name: [] for name in trees}
+    for name in ("parent", "change", "change", "parent") * rounds:
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "turn",
+             "--tree", str(trees[name]), "--seed", str(seed),
+             "--steps", str(steps)],
+            capture_output=True, text=True, timeout=900)
+        if proc.returncode:
+            sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
+            raise RuntimeError(f"{name} turn exited {proc.returncode}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        results[name].append(res)
+        log(f"[ab] {name}: {json.dumps(res)}")
+    summary = {}
+    for name, runs in results.items():
+        summary[name] = {
+            f"{kind}.{key}": statistics.median(r[kind][key] for r in runs)
+            for kind in ("host_ms", "step_ms") for key in runs[0][kind]}
+    log(f"[ab] {rounds} rounds of (parent, change, change, parent), "
+        f"{steps} decode steps per engine per turn; medians over turns: "
+        f"{json.dumps(summary)}")
+
+
+def trace_drops(windows: int, seed: int):
+    """Count the device kernel rows of traced decode windows against the
+    wrappers' launches, one line per window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    _import_tree(ROOT)
+    from repro_torch.kernels import ops
+
+    kinds = {"mixfp4_gemm_w4a4_fused": "w4a4_",
+             "mixfp4_attn_decode": "attn_decode_kernel",
+             "mixfp4_quant_rows": "quant_rows_kernel",
+             "fwht_rows": "fwht_rows_kernel"}
+    dev = torch.device("cuda")
+    engine = _engine(dev, seed, 6 * windows + 8, **ENGINES["w4a4_rht"])
+    steps = 5
+    short = {"cold": [], "warm": []}
+    rows_seen = {"cold": set(), "warm": set()}
+    for w in range(windows):
+        arm = "warm" if w % 2 else "cold"
+        sched = (schedule(wait=0, warmup=1, active=steps, repeat=1)
+                 if arm == "warm" else None)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=sched) as prof:
+            if arm == "warm":
+                engine.step()
+                prof.step()
+            before = ops.launch_counts()
+            for i in range(steps):
+                engine.step()
+                if arm == "warm" and i < steps - 1:
+                    prof.step()
+            torch.cuda.synchronize()
+            after = ops.launch_counts()
+        rows = [ev for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)
+                and not ev.key.startswith("ProfilerStep")]
+        n_rows = sum(ev.count for ev in rows)
+        lost = {k: after[k] - before[k]
+                - sum(ev.count for ev in rows if sub in ev.key)
+                for k, sub in kinds.items()}
+        lost = {k: v for k, v in lost.items() if v}
+        rows_seen[arm].add(n_rows)
+        if lost:
+            short[arm].append(w)
+        log(f"[trace-drops] window {w} ({arm}): {n_rows} device rows; "
+            f"kernel rows missing against the wrappers' launches: "
+            f"{lost or 'none'}")
+    log(f"[trace-drops] {windows} windows of {steps} W4A4 + RHT decode "
+        f"steps, alternately cold and after a warm-up step: windows with a "
+        f"row of the port's kernels missing: cold {short['cold']} of "
+        f"{-(-windows // 2)}, warm {short['warm']} of {windows // 2}; "
+        f"device rows per window: cold {sorted(rows_seen['cold'])}, warm "
+        f"{sorted(rows_seen['warm'])}")
+
+
+def trace_clock(windows: int, pad: float, seed: int):
+    """One line per window: kernel rows, and the margins between the
+    window's host-clock bounds and its kernels' profiler timestamps.  The
+    windows alternate in pairs (one call of each GEMM) between no pad and
+    the host idle ``pad`` seconds after the profiler starts recording, as
+    ``chip_smoke.py`` ``traced()`` does."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    _import_tree(ROOT)
+    from repro_torch.core import qtensor, scaling
+    from repro_torch.kernels import fwht
+    from repro_torch.kernels import mixfp4_gemm as G
+    from repro_torch.models.base import rht_signs_on_grid
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    k, n = 2304, 2048
+    w = torch.randn(k, n, device=dev, generator=gen) / math.sqrt(k)
+    qt = qtensor.quantize(w, qtensor.QuantSpec("mixfp4",
+                                               qtensor.BlockLayout2D()))
+    x = torch.randn(4, k, device=dev, generator=gen)
+    sg = rht_signs_on_grid(k, k, dev)
+    s_h = scaling.row_scale(fwht.fwht_rows(x, sg))
+    calls = [lambda: G.mixfp4_gemm_w4a16(x, qt.payload, qt.scales,
+                                         qt.scale32),
+             lambda: G.mixfp4_gemm_w4a4_fused(
+                 x, s_h, qt.payload, qt.scales, qt.scale32, per_row=True,
+                 rht_signs=sg)]
+    arms = [0.0, pad]
+    short = {a: [] for a in arms}
+    margins = {a: [] for a in arms}
+    seen = {a: 0 for a in arms}
+    for win in range(windows):
+        fn = calls[win % 2]
+        arm = arms[(win // 2) % len(arms)]
+        seen[arm] += 1
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            t_start = time.time_ns()
+            prof.step()
+            time.sleep(arm)
+            fn()
+            torch.cuda.synchronize()
+            t_end = time.time_ns()
+        evs = prof.profiler.kineto_results.events()
+        kern = [e for e in evs if e.device_type() == DeviceType.CUDA
+                and not e.is_user_annotation()
+                and not e.name().startswith("ProfilerStep")]
+        gemm = sum("w4a" in e.name() for e in kern)
+        first = (min(e.start_ns() for e in kern) - t_start) / 1e3 \
+            if kern else None
+        last = (t_end - max(e.end_ns() for e in kern)) / 1e3 \
+            if kern else None
+        if len(kern) != 2 or gemm != 1:
+            short[arm].append(win)
+        if kern:
+            margins[arm].append((first, last))
+        log(f"[trace-clock] window {win} (pad {arm} s): {len(kern)} kernel "
+            f"rows, {gemm} GEMM; window start to first kernel {first} us, "
+            f"last kernel to window end {last} us")
+    for arm in arms:
+        m = margins[arm]
+        log(f"[trace-clock] pad {arm} s: windows short of the 2 kernel "
+            f"rows {short[arm]} of {seen[arm]}; "
+            f"start margin min {min((a for a, _ in m), default=None)} us, "
+            f"end margin min {min((b for _, b in m), default=None)} us")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("ab")
+    p.add_argument("--parent", type=Path, required=True)
+    p.add_argument("--rounds", type=int, default=2)
+    p.add_argument("--steps", type=int, default=16)
+    p = sub.add_parser("turn")
+    p.add_argument("--tree", type=Path, required=True)
+    p.add_argument("--steps", type=int, default=16)
+    p = sub.add_parser("trace-drops")
+    p.add_argument("--windows", type=int, default=24)
+    p = sub.add_parser("trace-clock")
+    p.add_argument("--windows", type=int, default=200)
+    p.add_argument("--pad", type=float, default=0.05)
+    for p in sub.choices.values():
+        p.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("decode_study.py needs a CUDA device")
+    log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
+        f"; " + subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True,
+            text=True).stdout.strip())
+    if args.cmd == "ab":
+        ab(args.parent, args.rounds, args.seed, args.steps)
+    elif args.cmd == "turn":
+        print(json.dumps(turn(args.tree, args.seed, args.steps)))
+    elif args.cmd == "trace-clock":
+        trace_clock(args.windows, args.pad, args.seed)
+    else:
+        trace_drops(args.windows, args.seed)
+
+
+if __name__ == "__main__":
+    os.environ.setdefault("PYTHONUNBUFFERED", "1")
+    main()

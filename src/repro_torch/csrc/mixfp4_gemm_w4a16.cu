@@ -9,15 +9,17 @@
 // is read once for ~2*M flops per value); operations only at prefill
 // (M in the thousands), where the bf16 tensor-core rate is the ceiling.
 //
-// Design: a 64x64 output tile per 128-thread block; the block walks K in
-// 32-deep slabs.  Per slab it stages the activation tile (bf16, 16-byte
-// loads) in shared memory and decodes the weight slab straight from the
-// packed bytes (mixfp4_gemm_tile.cuh, shared with the W4A4 kernels); each
-// warp issues mma.sync m16n8k16 bf16 -> f32 over its 16 rows and all 64
-// columns.  The per-tensor scale multiplies the f32 accumulator in the
-// epilogue, which masks the ragged M and N edges.  The packed weight is
-// never expanded in device memory.  Split-K / GEMV variants for the small
-// decode M, TMA and wgmma are later work.
+// Design (mixfp4_gemm_tile.cuh, shared with the W4A4 kernels): at
+// M <= 64 the decode variant, one CTA per (64-column tile, K split): the
+// CTA issues its split's payload with cp.async and the activation slice
+// of the split (bf16, 16-byte cp.async) beside it, decodes the weight
+// straight into mma B fragments and reduces the split partials in the
+// last-arriving CTA of each column tile.  Above, the prefill variant: a
+// 64x64 tile per CTA, 32-deep slabs, the weight slab decoded into shared
+// memory, summed split by split in the decode variant's order.  The
+// per-tensor scale multiplies the f32 sum in the epilogue.  The packed
+// weight is never expanded in device memory.  wgmma and TMA at prefill M
+// are later work.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -31,48 +33,108 @@ using namespace mixfp4;
 __global__ void __launch_bounds__(128) w4a16_kernel(
     const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ wp,
     const uint8_t* __restrict__ ws, const float* __restrict__ s32,
-    float* __restrict__ y, int m, int k, int nw, int n) {
+    float* __restrict__ y, int m, int k, int nw, int n, int split_k) {
   __shared__ __align__(16) __nv_bfloat16 As[BM][LDA];
   __shared__ __align__(16) __nv_bfloat16 Bs[BN][LDB];
+  __shared__ SplitSum sum;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
 
-  float acc[8][4];
-  zero_acc(acc);
-  for (int k0 = 0; k0 < k; k0 += BK) {
-    // activation tile: BM x BK bf16 as 16-byte chunks, zero past M / K
+  float part[8][4];
+  sum_zero(sum, tid);
+  for (int ks0 = 0; ks0 < k; ks0 += split_k) {
+    const int kend = split_end(ks0, split_k, k);
+    zero_acc(part);
+    for (int k0 = ks0; k0 < kend; k0 += BK) {
+      // activation tile: BM x BK bf16 as 16-byte chunks, zero past M / K
 #pragma unroll
-    for (int c = tid; c < BM * BK / 8; c += 128) {
-      const int r = c / (BK / 8), cc = c % (BK / 8);
-      const int gm = m0 + r, gk = k0 + cc * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (gm < m && gk < k)
-        v = *reinterpret_cast<const uint4*>(x + static_cast<size_t>(gm) * k +
-                                            gk);
-      *reinterpret_cast<uint4*>(&As[r][cc * 8]) = v;
+      for (int c = tid; c < BM * BK / 8; c += 128) {
+        const int r = c / (BK / 8), cc = c % (BK / 8);
+        const int gm = m0 + r, gk = k0 + cc * 8;
+        uint4 v = make_uint4(0, 0, 0, 0);
+        if (gm < m && gk < k)
+          v = *reinterpret_cast<const uint4*>(
+              x + static_cast<size_t>(gm) * k + gk);
+        *reinterpret_cast<uint4*>(&As[r][cc * 8]) = v;
+      }
+      load_weight_slab(Bs, wp, ws, k0, n0, k, nw, tid);
+      __syncthreads();
+      mma_slab(As, Bs, part, warp, lane);
+      __syncthreads();
     }
-    load_weight_slab(Bs, wp, ws, k0, n0, k, nw, tid);
-    __syncthreads();
-    mma_slab(As, Bs, acc, warp, lane);
-    __syncthreads();
+    sum_add(sum, part, tid);
   }
-  store_tile(y, acc, s32, 0, m0, n0, m, n, warp, lane);
+  sum_load(part, sum, tid);
+  store_tile(y, part, s32, 0, m0, n0, m, n, warp, lane);
+}
+
+template <int MT>
+__global__ void __launch_bounds__(DTHREADS) w4a16_decode_kernel(
+    const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ wp,
+    const uint8_t* __restrict__ ws, const float* __restrict__ s32,
+    float* __restrict__ y, float* __restrict__ work,
+    int* __restrict__ counters, int m, int k, int nw, int n, int np,
+    int split_k) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * DBN, split = blockIdx.y;
+  const int ks0 = split * split_k;
+  const DecodeSmem sm = decode_smem(smem, m, split_k);
+  const uint32_t sb =
+      issue_weight_split(sm, wp, ws, ks0, split_k, n0, k, nw, tid);
+  // the split's activation rows, zero past K
+  const int chunks = split_k / 8;
+  for (int c = tid; c < m * chunks; c += DTHREADS) {
+    const int r = c / chunks, cc = c % chunks;
+    const int gk = ks0 + cc * 8;
+    const bool ok = gk < k;
+    cp_async16(sm.as + r * sm.lda + cc * 8,
+               ok ? x + static_cast<size_t>(r) * k + gk : x, ok);
+  }
+  store_scale(sm, sb, split_k, tid);
+  cp_async_wait_all();
+  __syncthreads();
+  float acc[MT][2][4];
+  mma_split<MT>(sm, m, (split_end(ks0, split_k, k) - ks0) / 16, acc, tid >> 5,
+            tid & 31);
+  finish_split(acc, work, counters, s32, 0, y, m, n, np, n0, split,
+               gridDim.y, tid);
 }
 
 }  // namespace
 
-// x (M, K) bf16 contiguous, K % 16 == 0; payload (K/2, NW) u8; scales
-// (K/16, NW/16) u8; NW % 16 == 0; s32 one f32 on the device; y (M, N) f32
-// with N <= NW (columns past N are not written).
+// x (M, K) bf16 contiguous, 16-byte aligned, K % 16 == 0; payload (K/2,
+// NW) u8, 16-byte aligned; scales (K/16, NW/16) u8; NW % 16 == 0; s32 one
+// f32 on the device; y (M, N) f32 with N <= NW (columns past N are not
+// written).  split_k: the K split depth (a multiple of 32, at most 256);
+// decode: 1 for the decode variant (M <= 64), which needs work (splits, M,
+// NP) f32 with NP = 64 * ceil(N / 64) and counters, one int per column
+// tile, zero before the first launch (each launch leaves them zero).
 extern "C" int mixfp4_gemm_w4a16(const void* x, const uint8_t* payload,
                                  const uint8_t* scales, const float* s32,
                                  float* y, int m, int k, int nw, int n,
-                                 void* stream) {
+                                 int split_k, int decode, float* work,
+                                 int* counters, void* stream) {
   if (m == 0 || n == 0) return 0;
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  w4a16_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), payload, scales, s32, y, m, k,
-      nw, n);
+  if (const int err = check_plan(m, split_k, decode)) return err;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  if (decode) {
+    const int tiles = (n + DBN - 1) / DBN;
+    const dim3 grid(tiles, (k + split_k - 1) / split_k);
+    const size_t smem = decode_smem_bytes(m, split_k);
+    const int mt = decode_mtiles(m);
+    auto kernel = mt == 1 ? w4a16_decode_kernel<1>
+                          : (mt == 2 ? w4a16_decode_kernel<2>
+                                     : w4a16_decode_kernel<4>);
+    kernel<<<grid, DTHREADS, smem, st>>>(xb, payload, scales, s32, y, work,
+                                         counters, m, k, nw, n, tiles * DBN,
+                                         split_k);
+  } else {
+    const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
+    w4a16_kernel<<<grid, 128, 0, st>>>(xb, payload, scales, s32, y, m, k, nw,
+                                       n, split_k);
+  }
   return static_cast<int>(cudaGetLastError());
 }

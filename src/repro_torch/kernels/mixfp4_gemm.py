@@ -17,6 +17,13 @@ decode value x block scale to bf16 (exact: at most 7 significant bits),
 multiply with f32 accumulation, and apply the per-tensor or per-row scale
 to the f32 result.  The fused prologue runs the row quantizer's own block
 math, so fused == quantizer then W4A4, bitwise, on either device.
+
+On the card, ``kernels/tuning.py`` picks the kernel variant and the K
+split depth from (M, K): at M <= 64 the decode variant reduces its split
+partials inside the one launch, through an f32 workspace and one counter
+per column tile, both allocated once per device (the counters zeroed
+then and left zero by every launch) and reused by every launch, so the
+GEMMs of one device must run on one stream, as the port's do.
 """
 from __future__ import annotations
 
@@ -24,7 +31,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, tuning
 from repro_torch.kernels.fwht import fwht_rows_math
 from repro_torch.kernels.mixfp4_quant import quant_block_math
 
@@ -156,6 +163,30 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
+#: per device: the decode variant's column-tile counters (zero between
+#: launches) and its f32 split-partial workspace; grown, never shrunk, and
+#: reused by every launch (the GEMMs of a device run on one stream)
+_SCRATCH: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _plan(m: int, k: int, n: int, device: torch.device) -> tuple:
+    """The C launchers' plan arguments: split_k, decode, and the decode
+    variant's workspace and counters (None for the prefill variant)."""
+    plan = tuning.select(m, k)
+    if not plan.decode:
+        return plan.split_k, 0, None, None
+    tiles = -(-n // tuning.BN)
+    need = plan.splits * m * tiles * tuning.BN
+    counters, work = _SCRATCH.get(device) or (None, None)
+    if counters is None or counters.numel() < tiles:
+        counters = torch.zeros(max(tiles, 4096), dtype=torch.int32,
+                               device=device)
+    if work is None or work.numel() < need:
+        work = torch.empty(need, dtype=torch.float32, device=device)
+    _SCRATCH[device] = counters, work
+    return plan.split_k, 1, work.data_ptr(), counters.data_ptr()
+
+
 def combined_scale(x_scale32, scale32, m: int, per_row: bool,
                device) -> torch.Tensor:
     """The combined output scale x_s32 * w_s32 in f32, as the reference
@@ -183,10 +214,12 @@ def mixfp4_gemm_w4a16(x: torch.Tensor, payload: torch.Tensor,
     _on_card(x.device, ("payload", payload), ("scales", scales))
     xb = _aligned(x.to(torch.bfloat16))   # one RNE rounding, as the
     s32 = s32.contiguous()                # reference does before its kernel
+    payload = _aligned(payload)
     y = torch.empty((m, n_out), dtype=torch.float32, device=x.device)
-    err = _lib("mixfp4_gemm_w4a16").mixfp4_gemm_w4a16(
+    plan = _plan(m, k, n_out, x.device)
+    err = _fn("mixfp4_gemm_w4a16", "mixfp4_gemm_w4a16")(
         xb.data_ptr(), payload.data_ptr(), scales.data_ptr(), s32.data_ptr(),
-        y.data_ptr(), m, k, payload.shape[1], n_out,
+        y.data_ptr(), m, k, payload.shape[1], n_out, *plan,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"mixfp4_gemm_w4a16 launch failed: cudaError {err}")
@@ -218,11 +251,13 @@ def mixfp4_gemm_w4a4(x_payload: torch.Tensor, x_scales: torch.Tensor,
     _on_card(x_payload.device, ("x_scales", x_scales),
              ("payload", payload), ("scales", scales))
     xp, xs, out = _aligned(x_payload), _aligned(x_scales), out.contiguous()
+    payload = _aligned(payload)
     y = torch.empty((m, n_out), dtype=torch.float32, device=xp.device)
-    err = _lib("mixfp4_gemm_w4a4").mixfp4_gemm_w4a4(
+    plan = _plan(m, k, n_out, xp.device)
+    err = _fn("mixfp4_gemm_w4a4", "mixfp4_gemm_w4a4")(
         xp.data_ptr(), xs.data_ptr(), out.data_ptr(), int(per_row),
         payload.data_ptr(), scales.data_ptr(), y.data_ptr(), m, k,
-        payload.shape[1], n_out,
+        payload.shape[1], n_out, *plan,
         torch.cuda.current_stream(xp.device).cuda_stream)
     if err:
         raise RuntimeError(f"mixfp4_gemm_w4a4 launch failed: cudaError {err}")
@@ -262,12 +297,14 @@ def mixfp4_gemm_w4a4_fused(x: torch.Tensor, x_scale32, payload: torch.Tensor,
              *(() if signs is None else (("rht_signs", signs),)))
     x32, xs32, out = _aligned(x32), xs32.contiguous(), out.contiguous()
     signs = None if signs is None else _aligned(signs)
+    payload = _aligned(payload)
     y = torch.empty((m, n_out), dtype=torch.float32, device=dev)
-    err = _lib("mixfp4_gemm_w4a4").mixfp4_gemm_w4a4_fused(
+    plan = _plan(m, k, n_out, dev)
+    err = _fn("mixfp4_gemm_w4a4", "mixfp4_gemm_w4a4_fused")(
         x32.data_ptr(), xs32.data_ptr(), out.data_ptr(), int(per_row),
         None if signs is None else signs.data_ptr(), payload.data_ptr(),
         scales.data_ptr(), y.data_ptr(), m, k, payload.shape[1], n_out,
-        torch.cuda.current_stream(dev).cuda_stream)
+        *plan, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"mixfp4_gemm_w4a4_fused launch failed: "
                            f"cudaError {err}")
@@ -275,22 +312,31 @@ def mixfp4_gemm_w4a4_fused(x: torch.Tensor, x_scale32, payload: torch.Tensor,
     return y
 
 
+# the plan arguments: split_k, decode, work, counters
+_PLAN_ARGS = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
 _ARGTYPES = {
-    # (source, C function) -> ctypes argument types
+    # C function -> ctypes argument types
     "mixfp4_gemm_w4a16": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-    + [ctypes.c_void_p],
+    + _PLAN_ARGS + [ctypes.c_void_p],
     "mixfp4_gemm_w4a4": [ctypes.c_void_p] * 3 + [ctypes.c_int]
-    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + _PLAN_ARGS
+    + [ctypes.c_void_p],
     "mixfp4_gemm_w4a4_fused": [ctypes.c_void_p] * 3 + [ctypes.c_int]
-    + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + _PLAN_ARGS
+    + [ctypes.c_void_p],
 }
 
 
-def _lib(source: str):
-    lib = build.load(source)
-    for fn_name, argtypes in _ARGTYPES.items():
-        fn = getattr(lib, fn_name, None)
-        if fn is not None and fn.argtypes is None:
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-    return lib
+_FNS: dict[str, ctypes._CFuncPtr] = {}
+
+
+def _fn(source: str, fn_name: str):
+    """The C entry ``fn_name`` of ``source``'s library, typed; looked up
+    once (each wrapper call is on the decode step's host path)."""
+    fn = _FNS.get(fn_name)
+    if fn is None:
+        fn = getattr(build.load(source), fn_name)
+        fn.argtypes = _ARGTYPES[fn_name]
+        fn.restype = ctypes.c_int
+        _FNS[fn_name] = fn
+    return fn

@@ -1,0 +1,56 @@
+"""Variant and K split selection for the MixFP4 GEMMs on Hopper.
+
+Counterpart of ``repro/kernels/tuning.py`` as far as the CUDA GEMMs
+(``csrc/mixfp4_gemm_tile.cuh``) need it.  The reference scores tiles with
+a VMEM cost model of a TPU core; the CUDA kernels have two fixed designs
+and one free choice, the K split, so the selector here is a pure function
+of (M, K) with no profile file and no environment variable.  It returns
+what the C launchers take:
+
+* ``decode``: the decode variant for M <= :data:`DECODE_MAX_M` (one CTA
+  per :data:`BN`-column tile and K split, the split partials reduced in
+  the launch by the last CTA of each column tile), else the prefill
+  variant (a 64x64 tile per CTA walking all of K);
+* ``split_k``: the split depth.  The splits start at multiples of it and
+  the last ends at K, in both variants: each is summed from zero and the
+  splits are added in order, so a row's output is bitwise the same
+  whatever M is;
+* ``splits``: how many there are, which sizes the decode workspace.
+
+Contracts (``tests/test_torch_tuning.py``): the splits depend on K alone,
+never on M or N (the reference's "bk independent of N" contract, which
+here also makes rows independent of M); they start on the 32-deep slab
+grid and end at K; the threshold, the column tile and the split depth
+agree with the C header's constants; at M = 4 every gemma2-2b projection
+launches at least one CTA per SM of an H100.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+__all__ = ["GemmPlan", "select", "SPLIT_K", "DECODE_MAX_M", "BN"]
+
+#: K split depth: 9 splits at K = 2304, 36 at K = 9216.  A multiple of the
+#: prefill tile's 32-deep slab and at most ``MAX_SPLIT_K`` of the C side.
+SPLIT_K = 256
+#: the decode variant's largest M (``DECODE_MAX_M`` in the C header)
+DECODE_MAX_M = 64
+#: the decode variant's column tile (``DBN``): the workspace's row pitch is
+#: this times the number of column tiles
+BN = 64
+
+
+class GemmPlan(NamedTuple):
+    """What the wrappers pass to the C launchers for one GEMM call."""
+
+    decode: bool
+    split_k: int
+    splits: int
+
+
+def select(m: int, k: int) -> GemmPlan:
+    """The plan for y (m, n) = x (m, k) @ W (k, n); N plays no part."""
+    if m < 0 or k <= 0 or k % 16:
+        raise ValueError(f"M={m}, K={k}: K must be a positive multiple "
+                         "of 16")
+    return GemmPlan(m <= DECODE_MAX_M, SPLIT_K, -(-k // SPLIT_K))

@@ -8,6 +8,8 @@ it runs on a machine that has only PyTorch and the CUDA toolkit:
 
 Tolerances: quantizer and RHT bitwise; W4A16 and W4A4 1e-3 of max|plain|
 (the two sum the same exact bf16 products in f32, in different orders);
+each GEMM's rows bitwise independent of M, across its decode (M <= 64)
+and prefill variants, and repeat calls bitwise equal;
 attention 1e-4; the fused W4A4 kernel bitwise equal to the quantizer
 followed by the packed W4A4 kernel on the card; the paged attention
 kernel bitwise equal to the fixed-slot one on the gathered rows.
@@ -149,6 +151,72 @@ def test_gemm_w4a4_fused_kernel_vs_plain_and_two_pass(cuda, mkn, mode):
     xt = xd if sd is None else ops.rht_rows(xd, sd)
     two = qtensor.qmm(qtensor.quantize_rows(xt, per_row=per_row), wd)
     assert torch.equal(y, two)
+
+
+GEMMA_PAIRS = [(2304, 2048), (2304, 1024), (2048, 2304), (2304, 9216),
+               (9216, 2304)]
+GEMM_KINDS = ["w4a16", "w4a4_tensor", "w4a4_row", "fused_tensor",
+              "fused_row", "fused_row_rht"]
+
+
+def _gemm_call(kind, x, qw, signs):
+    """fn(m): the GEMM ``kind`` on the first m rows of x (on the card).
+    Row scales come from each row; a per-tensor scale from all rows."""
+    G = mixfp4_gemm
+    from repro_torch.core import scaling
+    if kind == "w4a16":
+        return lambda m: G.mixfp4_gemm_w4a16(x[:m], qw.payload, qw.scales,
+                                             qw.scale32)
+    if kind.startswith("w4a4"):
+        per_row = kind == "w4a4_row"
+        qx = qtensor.quantize_rows(x, per_row=per_row)
+        return lambda m: G.mixfp4_gemm_w4a4(
+            qx.payload[:m], qx.scales[:m],
+            qx.scale32[:m] if per_row else qx.scale32, qw.payload,
+            qw.scales, qw.scale32, per_row=per_row)
+    if kind == "fused_tensor":
+        s = scaling.tensor_scale(x)
+        return lambda m: G.mixfp4_gemm_w4a4_fused(x[:m], s, qw.payload,
+                                                  qw.scales, qw.scale32)
+    sg = signs if kind == "fused_row_rht" else None
+    s = scaling.row_scale(x if sg is None else fwht.fwht_rows(x, sg))
+    return lambda m: G.mixfp4_gemm_w4a4_fused(
+        x[:m], s[:m], qw.payload, qw.scales, qw.scale32, per_row=True,
+        rht_signs=sg)
+
+
+@pytest.mark.parametrize("kind", GEMM_KINDS)
+@pytest.mark.parametrize("kn", GEMMA_PAIRS)
+def test_gemm_rows_bitwise_independent_of_m(cuda, kn, kind):
+    """The first rows of a call at M = 4 (decode variant, split partials
+    reduced in the launch) equal the same rows of calls at M in {1, 16,
+    32, 64, 65, 4544}, across the decode/prefill boundary; repeat calls
+    are bitwise equal."""
+    k, n = kn
+    x, qw = _w4a4_case((4544, k, n))
+    x, qw, signs = x.to(cuda), qw.to(cuda), _signs(k, seed=k).to(cuda)
+    fn = _gemm_call(kind, x, qw, signs)
+    ref = fn(4)
+    for m in (4, 64):
+        assert torch.equal(fn(m), fn(m))
+    for m in (1, 16, 32, 64, 65, 4544):
+        r = min(m, 4)
+        assert torch.equal(fn(m)[:r], ref[:r]), m
+
+
+@pytest.mark.parametrize("kind", GEMM_KINDS)
+@pytest.mark.parametrize("m", [1, 4, 16, 32, 64, 65])
+def test_gemm_kernels_vs_plain_on_both_variants(cuda, m, kind):
+    """Each GEMM against its plain version (the wrapper on CPU tensors) on
+    both sides of the decode variant's M <= 64, at a ragged N and a K of
+    two and a half splits."""
+    k, n = 640, 272
+    x, qw = _w4a4_case((m, k, n))
+    signs = _signs(k, seed=3)
+    got = _gemm_call(kind, x.to(cuda), qw.to(cuda), signs.to(cuda))(m)
+    want = _gemm_call(kind, x, qw, signs)(m)
+    assert float((got.cpu() - want).abs().max()) <= 1e-3 * float(
+        want.abs().max())
 
 
 @pytest.mark.parametrize("case", ATTN_CASES)
