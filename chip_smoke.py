@@ -10,8 +10,10 @@ Phases (any failed check raises, so the script exits non-zero):
    gemma2-2b shapes, and time kernel, plain version and one library call;
    the fused W4A4 kernel must also equal the quantizer followed by the
    packed W4A4 kernel bitwise;
-   the paged attention kernel must equal the fixed one bitwise, and the
-   fixed one its output digest from before the two shared a template;
+   the paged attention kernel must equal the fixed one bitwise, the
+   fixed one its recorded output digest, and each sequence's attention
+   output must be bitwise the same at B = 1 and B = 4 and at three cache
+   capacities (``[attn-invariance]``);
    every GEMM's rows must be bitwise independent of M, across its decode
    (M <= 64, split K reduced in the launch) and prefill variants, and
    repeat calls bitwise equal;
@@ -287,50 +289,90 @@ def check_attn(dev, flush) -> dict:
     log(f"[attn] B=4 S=8192 lengths {lengths.tolist()} window 4096 and 0, "
         f"softcap 50: max abs error {worst:.3e} (tolerance 1e-4)")
 
+    # timed as the served path calls it: the per-tensor scales on the card
+    one = torch.ones((), device=dev)
+    s32 = {"k_scale32": one, "v_scale32": one, "softcap": 50.0}
     kern = lambda: A.mixfp4_attn_decode(q, kp, ks, vp, vs, lengths,
-                                        window=0, softcap=50.0)
+                                        window=0, **s32)
     plain = lambda: A.attn_decode_plain(q, kp, ks, vp, vs, lengths,
-                                        window=0, softcap=50.0)
+                                        window=0, **s32)
     ms = bench(kern, 20, flush)
+    dev_ms = bench(kern, 20, flush, keep_ahead=True)
     plain_ms = bench(plain, 5, flush)
     ms_local = bench(lambda: A.mixfp4_attn_decode(
-        q, kp, ks, vp, vs, lengths, window=4096, softcap=50.0), 20, flush)
+        q, kp, ks, vp, vs, lengths, window=4096, **s32), 20, flush)
     # yardstick: SDPA over the dequantized cache (same masks, no softcap)
     kd = A.dequant_kv(kp, ks, 1.0).transpose(1, 2)
     vd = A.dequant_kv(vp, vs, 1.0).transpose(1, 2)
-    mask = (torch.arange(s, device=dev)[None, :]
-            < lengths[:, None])[:, None, None, :]
-    lib_ms = bench(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q[:, :, None], kd, vd, attn_mask=mask, enable_gqa=True), 20, flush)
-    rows = int(lengths.clamp(max=s).sum())
-    n_bytes = (2 * rows * hkv * (dh // 2 + dh // 16) + b * h * dh * 8
-               + b * 4)
-    n_ops = 4 * rows * (h // hkv) * hkv * dh
-    b_ms, b_by = bound(n_bytes, n_ops, F32_OPS_PER_S)
+    sdpa = {w: (lambda m=attn_mask(lengths, s, w):
+                torch.nn.functional.scaled_dot_product_attention(
+                    q[:, :, None], kd, vd, attn_mask=m, enable_gqa=True))
+            for w in (0, 4096)}
+    lib_ms = bench(sdpa[0], 20, flush)
+    lib_dev_ms = bench(sdpa[0], 20, flush, keep_ahead=True)
+    lib_local = bench(sdpa[4096], 20, flush)
+    b_ms, b_by = attn_bound(attn_rows(lengths, s, 0), b, h, hkv, dh)
+    bl_ms, _ = attn_bound(attn_rows(lengths, s, 4096), b, h, hkv, dh)
     log(f"[attn] global layer: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"SDPA on the dequantized f32 cache (no softcap) {lib_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}); local layer (window 4096): kernel "
-        f"{ms_local:.4f} ms")
+        f"bound {b_ms:.4f} ms ({b_by}); with the host kept ahead (card "
+        f"time alone): kernel {dev_ms:.4f} ms, SDPA {lib_dev_ms:.4f} ms; "
+        f"local layer (window 4096): kernel {ms_local:.4f} ms, SDPA "
+        f"{lib_local:.4f} ms, bound {bl_ms:.4f} ms")
     return {"name": "mixfp4_attn_decode", "route": "cuda",
             "source": "src/repro_torch/csrc/mixfp4_attn_decode.cu",
             "replaces": "src/repro/kernels/mixfp4_attn.py:174",
             "max_abs_err": worst, "tolerance": "1e-4 absolute",
             "shape": f"B=4 S=8192 lengths {lengths.tolist()}, window 0",
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms}
+            "bound_by": b_by, "library_ms": lib_ms, "device_ms": dev_ms,
+            "library_device_ms": lib_dev_ms}
+
+
+def attn_rows(lengths: torch.Tensor, s: int, window: int) -> int:
+    """The cache rows a decode-attention call must read per kv head: each
+    sequence's keys under ``kpos < len`` and the window."""
+    hi = lengths.clamp(max=s)
+    lo = (lengths - window).clamp(min=0) if window > 0 else 0 * lengths
+    return int((hi - lo).clamp(min=0).sum())
+
+
+def attn_bound(rows: int, b: int, h: int, hkv: int, dh: int,
+               extra_bytes: int = 0):
+    """Least card time of a decode-attention call: each valid K/V row's
+    payload and scale bytes once, q in and the output out (f32), the
+    lengths and ``extra_bytes`` (block tables); ~4 flops per row, head and
+    dim."""
+    n_bytes = (2 * rows * hkv * (dh // 2 + dh // 16) + b * h * dh * 8
+               + b * 4 + extra_bytes)
+    return bound(n_bytes, 4 * rows * (h // hkv) * hkv * dh, F32_OPS_PER_S)
+
+
+def attn_mask(lengths: torch.Tensor, s: int, window: int) -> torch.Tensor:
+    """The decode masks as an SDPA boolean mask (B, 1, 1, S)."""
+    kpos = torch.arange(s, device=lengths.device)[None, :]
+    mask = kpos < lengths[:, None]
+    if window > 0:
+        mask &= kpos > (lengths - 1 - window)[:, None]
+    return mask[:, None, None, :]
 
 
 # sha256 of the fixed-slot attention kernel's output bytes on
-# paged_attn_inputs() (softcap 50), per window, as the kernel computed them
-# before it became a template over its row address: the template must
-# leave it bitwise unchanged.  The bytes of an expf/tanhf kernel belong to
-# the toolkit that compiled it; these were recorded under FIXED_ATTN_NVCC
-# (PERF.md §6 names the run), and another toolkit needs its own record.
+# paged_attn_inputs() (softcap 50), per window, as the split-S kernel
+# computes them: a change to its arithmetic (the split depth, the order of
+# a sum, the merge) shows here.  The bytes of an expf/tanhf kernel belong
+# to the toolkit that compiled it; these were recorded under
+# FIXED_ATTN_NVCC (PERF.md §6 names the run), and another toolkit needs
+# its own record.
 FIXED_ATTN_NVCC = "Cuda compilation tools, release 12.9, V12.9.86"
 FIXED_ATTN_SHA256 = {
-    4096: "86b25d2ef387be3f6d8b5872c069d7a0d71551f797d282435a0fad0a796891bc",
-    0: "717a83f76cca0c717b88048c2318ed11cc26302f08664cddb95fee5bd0d0f084"}
+    4096: "8b7bfac2df253e334a20628fdf89f915e5e05e64de2a932d4d86a42ddb682358",
+    0: "89c6de2796301c50adcbb7b15a5889baca4e8ceb4546a310345fd27bad41b361"}
 PAGE_LEN = 16
+# decode lengths of the phase-3 mix near the end of its decode: three
+# lanes of the shared-prefix and 300-token requests, one of the
+# 4500-token prompt
+SERVED_LENGTHS = (1190, 1200, 332, 4532)
 
 
 def paged_attn_inputs(dev):
@@ -405,7 +447,7 @@ def check_attn_paged(dev, flush) -> dict:
                 f"fixed attention window={window}: output digest {digest} "
                 f"is not the one recorded under nvcc {FIXED_ATTN_NVCC!r}"
                 + ("" if nvcc == FIXED_ATTN_NVCC else
-                   f"; this build's nvcc is {nvcc!r}: record the parent "
+                   f"; this build's nvcc is {nvcc!r}: record this "
                    "kernel's digest for it"))
         err = float((o - op).abs().max())
         worst = max(worst, err)
@@ -417,32 +459,59 @@ def check_attn_paged(dev, flush) -> dict:
         f"{lengths.tolist()}, window 4096 and 0, softcap 50: equal to the "
         f"fixed kernel bitwise; fixed kernel output bitwise its recorded "
         f"digest; max abs error vs plain {worst:.3e} (tolerance 1e-4)")
-    kw = {"window": 0, "softcap": 50.0}
+    check_attn_invariance(q, fixed, lengths, slabs, bt)
+    # timed as the served path calls it: the per-tensor scales on the card
+    one = torch.ones((), device=dev)
+    s32 = {"k_scale32": one, "v_scale32": one, "softcap": 50.0}
+    kw = {"window": 0, **s32}
     ms = bench(lambda: A.mixfp4_attn_decode_paged(q, *slabs, bt, lengths,
                                                   **kw), 20, flush)
-    fixed_ms = bench(lambda: A.mixfp4_attn_decode(q, *fixed, lengths, **kw),
-                     20, flush)
     plain_ms = bench(lambda: A.attn_decode_paged_plain(q, *slabs, bt,
                                                        lengths, **kw), 5,
                      flush)
-    # yardstick: SDPA over the gathered dequantized cache (no softcap)
-    kd = A.dequant_kv(A.gather_pages(slabs[0], bt),
-                      A.gather_pages(slabs[1], bt), 1.0).transpose(1, 2)
-    vd = A.dequant_kv(A.gather_pages(slabs[2], bt),
-                      A.gather_pages(slabs[3], bt), 1.0).transpose(1, 2)
-    mask = (torch.arange(s, device=dev)[None, :]
-            < lengths[:, None])[:, None, None, :]
-    lib_ms = bench(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q[:, :, None], kd, vd, attn_mask=mask, enable_gqa=True), 20, flush)
-    rows = int(lengths.clamp(max=s).sum())
-    n_bytes = (2 * rows * hkv * (dh // 2 + dh // 16) + b * h * dh * 8
-               + b * 4 + bt.numel() * 4)
-    n_ops = 4 * rows * h * dh
-    b_ms, b_by = bound(n_bytes, n_ops, F32_OPS_PER_S)
+    # yardstick: SDPA over the dequantized cache (no softcap); the gathered
+    # pool rows are the fixed cache's rows
+    kd = A.dequant_kv(fixed[0], fixed[1], 1.0).transpose(1, 2)
+    vd = A.dequant_kv(fixed[2], fixed[3], 1.0).transpose(1, 2)
+    times = {}
+    for shape, lens in (("phase-2", lengths),
+                        ("served", torch.tensor(SERVED_LENGTHS,
+                                                dtype=torch.int32,
+                                                device=dev))):
+        for window in (0, 4096):
+            kw = {"window": window, **s32}
+            mask = attn_mask(lens, s, window)
+            t = {
+                "paged": bench(lambda: A.mixfp4_attn_decode_paged(
+                    q, *slabs, bt, lens, **kw), 20, flush),
+                "fixed": bench(lambda: A.mixfp4_attn_decode(
+                    q, *fixed, lens, **kw), 20, flush),
+                "paged_device": bench(lambda: A.mixfp4_attn_decode_paged(
+                    q, *slabs, bt, lens, **kw), 20, flush, keep_ahead=True),
+                "fixed_device": bench(lambda: A.mixfp4_attn_decode(
+                    q, *fixed, lens, **kw), 20, flush, keep_ahead=True),
+                "sdpa": bench(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        q[:, :, None], kd, vd, attn_mask=mask,
+                        enable_gqa=True), 20, flush),
+                "bound": attn_bound(attn_rows(lens, s, window), b, h, hkv,
+                                    dh, bt.numel() * 4)[0]}
+            times[(shape, window)] = t
+            log(f"[attn-paged] {shape} lengths {lens.tolist()}, "
+                f"{'global' if window == 0 else 'local (window 4096)'}: "
+                f"paged kernel {t['paged']:.4f} ms (card alone "
+                f"{t['paged_device']:.4f}), fixed kernel on the same rows "
+                f"{t['fixed']:.4f} ms (card alone {t['fixed_device']:.4f}), "
+                f"SDPA on the dequantized f32 cache "
+                f"(no softcap) {t['sdpa']:.4f} ms, bound {t['bound']:.4f} ms")
+    g2 = times[("phase-2", 0)]
+    b_ms, b_by = attn_bound(attn_rows(lengths, s, 0), b, h, hkv, dh,
+                            bt.numel() * 4)
     log(f"[attn-paged] global layer: kernel {ms:.4f} ms (the fixed kernel "
-        f"on the same rows {fixed_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-        f"SDPA on the gathered dequantized f32 cache (no softcap) "
-        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"on the same rows {g2['fixed']:.4f} ms; card alone "
+        f"{g2['paged_device']:.4f} against {g2['fixed_device']:.4f}), plain "
+        f"{plain_ms:.4f} ms, SDPA {g2['sdpa']:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by})")
     return {"name": "mixfp4_attn_decode_paged", "route": "cuda",
             "source": "src/repro_torch/csrc/mixfp4_attn_decode.cu",
             "replaces": "src/repro/kernels/mixfp4_attn.py:253",
@@ -451,7 +520,55 @@ def check_attn_paged(dev, flush) -> dict:
             "shape": f"B=4, 8192 logical rows, 2049 pages of 16, lengths "
                      f"{lengths.tolist()}, window 0",
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms}
+            "bound_by": b_by, "library_ms": g2["sdpa"],
+            "device_ms": g2["paged_device"]}
+
+
+def check_attn_invariance(q, fixed, lengths, slabs, bt):
+    """Each sequence's output of the B = 4 calls on the phase-2 inputs,
+    fixed and paged, equals its B = 1 call at the same capacity, at a
+    smaller one (rows cut to one page past its length) and at a larger one
+    (512 junk rows appended; 32 more table entries at the trash page),
+    bitwise, for the global and the local layer: the key splits come from
+    key positions alone."""
+    from repro_torch.kernels import mixfp4_attn as A
+
+    s = fixed[0].shape[1]
+    gen = torch.Generator(device=q.device).manual_seed(9)
+    junk = [torch.randint(0, 256, (1, 512, *a.shape[2:]), generator=gen,
+                          dtype=torch.uint8, device=q.device)
+            for a in fixed]
+    calls = 0
+    for window in (4096, 0):
+        kw = {"window": window, "softcap": 50.0}
+        ref = A.mixfp4_attn_decode(q, *fixed, lengths, **kw)
+        for i, n in enumerate(lengths.tolist()):
+            one = lengths[i:i + 1]
+            pages = -(-n // PAGE_LEN)
+            cut = min(s, (pages + 1) * PAGE_LEN)
+            runs = [A.mixfp4_attn_decode(q[i:i + 1], *cache, one, **kw)
+                    for cache in ([a[i:i + 1] for a in fixed],
+                                  [a[i:i + 1, :cut] for a in fixed],
+                                  [torch.cat([a[i:i + 1], j], 1)
+                                   for a, j in zip(fixed, junk)])]
+            wide = torch.cat([bt[i:i + 1], torch.zeros(
+                (1, 32), dtype=torch.int32, device=q.device)], 1)
+            runs += [A.mixfp4_attn_decode_paged(q[i:i + 1], *slabs, table,
+                                                one, **kw)
+                     for table in (bt[i:i + 1],
+                                   bt[i:i + 1, :min(pages + 1,
+                                                    bt.shape[1])], wide)]
+            calls += len(runs)
+            for k, got in enumerate(runs):
+                if not torch.equal(got[0], ref[i]):
+                    raise AssertionError(
+                        f"attention window={window}: sequence {i} at B=1 "
+                        f"(run {k}) differs from its row at B=4")
+    log(f"[attn-invariance] phase-2 inputs, window 4096 and 0: each "
+        f"sequence's B=1 output at capacities S, one page past its length "
+        f"and S+512 (fixed), and through its table, cut and widened by 32 "
+        f"trash entries (paged), bitwise equal to its row of the B=4 "
+        f"call: {calls} calls")
 
 
 def _rows_like_activations(m: int, k: int, dev, gen) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Decode-step studies of the PyTorch/CUDA port on one GPU.
 
-Three commands, each for one CUDA device:
+Four commands, each for one CUDA device:
 
 ``ab --parent DIR [--rounds R]``
     Parent against change in alternating turns (parent, change, change,
@@ -25,6 +25,14 @@ Three commands, each for one CUDA device:
     (a row missing from a trace is a record the profiler lost) and the
     windows' device row totals (every step runs the same kernels).
 
+``attn-sweep``
+    Device time per launch of the decode-attention kernel (fixed-slot,
+    gemma2-2b heads, global layer) over batch sizes and lengths from 0
+    to 8192 keys, from ``torch.profiler``'s kernel rows with the L2
+    flushed before each call and without, beside the CTAs that hold keys
+    and the byte bound: how the launch time scales with the splits and
+    the CTAs.
+
 ``trace-clock [--windows N]``
     Traces N windows of one decode-M GEMM call each (W4A16, then fused
     W4A4 + RHT, alternately), every window after a warm-up call, in two
@@ -37,6 +45,7 @@ Three commands, each for one CUDA device:
   python3 decode_study.py ab --parent build/parent --rounds 2
   python3 decode_study.py trace-drops --windows 24
   python3 decode_study.py trace-clock --windows 200
+  python3 decode_study.py attn-sweep
 """
 from __future__ import annotations
 
@@ -325,6 +334,80 @@ def trace_clock(windows: int, pad: float, seed: int):
             f"end margin min {min((b for _, b in m), default=None)} us")
 
 
+# attn-sweep cases: (label, B, S, lengths); gemma2-2b heads (Hkv 4, H 8,
+# dh 256), global layer, softcap 50
+SWEEP = [("4 x 0 (no valid key)", 4, 8192, [0] * 4),
+         ("1 x 1024", 1, 8192, [1024]),
+         ("4 x 256", 4, 8192, [256] * 4),
+         ("4 x 1024", 4, 8192, [1024] * 4),
+         ("4 x 1024 at S=1024", 4, 1024, [1024] * 4),
+         ("4 x 2048", 4, 8192, [2048] * 4),
+         ("4 x 4096", 4, 8192, [4096] * 4),
+         ("4 x 8192", 4, 8192, [8192] * 4),
+         ("1 x 8192", 1, 8192, [8192]),
+         ("phase 2", 4, 8192, [8192, 175, 2488, 710]),
+         ("served", 4, 8192, [1190, 1200, 332, 4532]),
+         ("16 x 1024", 16, 8192, [1024] * 16)]
+
+
+def attn_sweep(seed: int, calls: int = 10):
+    """Device time per launch of the fixed-slot decode-attention kernel
+    over the SWEEP shapes, from ``torch.profiler``'s kernel rows, with the
+    L2 flushed before each call (cold) and without (warm: the same cache
+    rows again); one line per shape with its non-empty CTAs and byte
+    bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _import_tree(ROOT)
+    from repro_torch.kernels import mixfp4_attn as A
+    from repro_torch.kernels import tuning
+    from repro_torch.models.base import quantize_kv_rows
+
+    dev = torch.device("cuda")
+    hkv, h, dh = 4, 8, 256
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    big = [a for _ in range(2) for a in quantize_kv_rows(torch.randn(
+        16, 8192, hkv, dh, device=dev, generator=gen))]
+    q = torch.randn(16, h, dh, device=dev, generator=gen)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    for label, b, s, lens in SWEEP:
+        cache = [a[:b, :s].contiguous() for a in big]
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        fn = lambda: A.mixfp4_attn_decode(q[:b], *cache, lengths,
+                                          softcap=50.0)
+        fn()
+        torch.cuda.synchronize()
+        us = {}
+        for arm in ("cold", "warm"):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                time.sleep(0.05)
+                for _ in range(calls):
+                    if arm == "cold":
+                        flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+            rows = [ev for ev in prof.key_averages()
+                    if ev.device_type == DeviceType.CUDA
+                    and "attn_decode_kernel" in ev.key]
+            n = sum(ev.count for ev in rows)
+            if n != calls:
+                log(f"[attn-sweep] {label} {arm}: {n} of {calls} kernel "
+                    "rows traced")
+            us[arm] = sum(ev.self_device_time_total
+                          for ev in rows) / max(n, 1)
+        ctas = hkv * sum(len(tuning.attn_split_range(x, 0, s))
+                         for x in lens)
+        rows_read = sum(min(x, s) for x in lens)
+        bound_us = (2 * rows_read * hkv * (dh // 2 + dh // 16)
+                    + b * h * dh * 8) / 3.35e12 * 1e6
+        log(f"[attn-sweep] {label}: B={b} S={s}: {ctas} non-empty CTAs of "
+            f"{b * hkv * tuning.attn_splits(s).splits}; us per launch: "
+            f"cold {us['cold']:.2f}, warm {us['warm']:.2f}; byte bound "
+            f"{bound_us:.2f} us")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -337,6 +420,7 @@ def main():
     p.add_argument("--steps", type=int, default=16)
     p = sub.add_parser("trace-drops")
     p.add_argument("--windows", type=int, default=24)
+    sub.add_parser("attn-sweep")
     p = sub.add_parser("trace-clock")
     p.add_argument("--windows", type=int, default=200)
     p.add_argument("--pad", type=float, default=0.05)
@@ -354,6 +438,8 @@ def main():
         ab(args.parent, args.rounds, args.seed, args.steps)
     elif args.cmd == "turn":
         print(json.dumps(turn(args.tree, args.seed, args.steps)))
+    elif args.cmd == "attn-sweep":
+        attn_sweep(args.seed)
     elif args.cmd == "trace-clock":
         trace_clock(args.windows, args.pad, args.seed)
     else:

@@ -15,6 +15,12 @@ dh^-0.5 scale.  ``mixfp4_attn_decode`` launches
 ``csrc/mixfp4_attn_decode.cu`` for CUDA tensors and runs
 :func:`attn_decode_plain` for CPU tensors.  Returns (B, H, dh) f32.
 
+The kernel splits each sequence's keys at multiples of
+``tuning.SPLIT_S`` and merges the splits' softmax states in split order
+inside the launch, through an f32 workspace and one counter per
+(sequence, kv head), both allocated once per device and reused.
+:func:`attn_decode_split_plain` is that arithmetic on the CPU, for tests.
+
 ``mixfp4_attn_decode_paged`` (the reference's entry of the same name)
 reads the same rows from the paged pool: K/V slabs
 (P, page_len, Hkv, dh/2) + (P, page_len, Hkv, dh/16) and block tables
@@ -31,11 +37,12 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, tuning
 
 __all__ = ["mixfp4_attn_decode", "mixfp4_attn_decode_paged",
-           "attn_decode_plain", "attn_decode_paged_plain", "gather_pages",
-           "dequant_kv", "launches", "launches_paged"]
+           "attn_decode_plain", "attn_decode_paged_plain",
+           "attn_decode_split_plain", "gather_pages", "dequant_kv",
+           "launches", "launches_paged"]
 
 _G = 16
 _NEG_INF = -1e30
@@ -80,6 +87,50 @@ def attn_decode_plain(q, k_payload, k_scales, v_payload, v_scales, lengths,
     return o.reshape(b, h, dh)
 
 
+def attn_decode_split_plain(q, k_payload, k_scales, v_payload, v_scales,
+                            lengths, *, window: int = 0, k_scale32=1.0,
+                            v_scale32=1.0,
+                            softcap: float = 0.0) -> torch.Tensor:
+    """The kernel's split-S arithmetic in plain PyTorch (tests only): each
+    split of a sequence's valid keys (``tuning.attn_split_range``) gives
+    its softmax state (m, l, acc) over those keys alone; the states merge
+    in split order (m = max m_i, weights exp(m_i - m)), and the output is
+    acc / l where l > 0, zeros for a sequence with no valid key."""
+    b, h, dh = q.shape
+    s, hkv = k_payload.shape[1:3]
+    g = h // hkv
+    k = dequant_kv(k_payload, k_scales, k_scale32)
+    v = dequant_kv(v_payload, v_scales, v_scale32)
+    qr = q.to(torch.float32).reshape(b, hkv, g, dh)
+    lens = torch.as_tensor(lengths, dtype=torch.int32).expand(b).tolist()
+    out = torch.zeros((b, hkv, g, dh), dtype=torch.float32, device=q.device)
+    for i, n in enumerate(lens):
+        lo = max(0, n - window) if window > 0 else 0
+        hi = min(n, s)
+        parts = []
+        for sp in tuning.attn_split_range(n, window, s):
+            a = max(lo, sp * tuning.SPLIT_S)
+            e = min(hi, (sp + 1) * tuning.SPLIT_S)
+            sc = torch.einsum("kgd,skd->kgs", qr[i], k[i, a:e]) * (dh ** -0.5)
+            if softcap:
+                sc = softcap * torch.tanh(sc * (1.0 / softcap))
+            m = sc.amax(-1, keepdim=True)
+            p = torch.exp(sc - m)
+            parts.append((m, p.sum(-1, keepdim=True),
+                          torch.einsum("kgs,skd->kgd", p, v[i, a:e])))
+        if not parts:
+            continue
+        m = torch.stack([m_i for m_i, _, _ in parts]).amax(0)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(out[i])
+        for m_i, l_i, acc_i in parts:
+            w = torch.exp(m_i - m)
+            l = l + l_i * w
+            acc = acc + acc_i * w
+        out[i] = acc / torch.where(l > 0, l, torch.ones_like(l))
+    return out.reshape(b, h, dh)
+
+
 def mixfp4_attn_decode(q, k_payload, k_scales, v_payload, v_scales, lengths,
                        *, window: int = 0, k_scale32=1.0, v_scale32=1.0,
                        softcap: float = 0.0) -> torch.Tensor:
@@ -107,10 +158,12 @@ def mixfp4_attn_decode(q, k_payload, k_scales, v_payload, v_scales, lengths,
         q, hkv, lengths, k_scale32, v_scale32, softcap,
         k_payload=k_payload, k_scales=k_scales, v_payload=v_payload,
         v_scales=v_scales)
+    plan, work, counters = _plan(b, s, h, dh, q.device)
     err = _lib().mixfp4_attn_decode(
         qf.data_ptr(), k_payload.data_ptr(), k_scales.data_ptr(),
         v_payload.data_ptr(), v_scales.data_ptr(), lens.data_ptr(),
-        s32.data_ptr(), out.data_ptr(), b, s, h, hkv, dh, window, *scal,
+        s32.data_ptr(), out.data_ptr(), work, counters, b, s, h, hkv, dh,
+        window, *plan, *scal,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"mixfp4_attn_decode launch failed: "
@@ -178,11 +231,12 @@ def mixfp4_attn_decode_paged(q, k_payload, k_scales, v_payload, v_scales,
         k_payload=k_payload, k_scales=k_scales, v_payload=v_payload,
         v_scales=v_scales, block_tables=block_tables)
     max_pages = block_tables.shape[1]
+    plan, work, counters = _plan(b, max_pages * page_len, h, dh, q.device)
     err = _lib().mixfp4_attn_decode_paged(
         qf.data_ptr(), k_payload.data_ptr(), k_scales.data_ptr(),
         v_payload.data_ptr(), v_scales.data_ptr(), block_tables.data_ptr(),
-        lens.data_ptr(), s32.data_ptr(), out.data_ptr(), b, max_pages,
-        page_len, h, hkv, dh, window, *scal,
+        lens.data_ptr(), s32.data_ptr(), out.data_ptr(), work, counters, b,
+        max_pages, page_len, h, hkv, dh, window, *plan, *scal,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"mixfp4_attn_decode_paged launch failed: "
@@ -220,14 +274,36 @@ def _launch_args(q, hkv, lengths, k_scale32, v_scale32, softcap,
     return qf, lens, s32, out, (scale, float(softcap), inv_cap)
 
 
+#: per device: one zeroed counter per (sequence, kv head), which the
+#: kernel leaves zero, and the f32 split workspace; grown, never shrunk,
+#: and reused by every launch of both entries (one stream per device)
+_SCRATCH: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _plan(b: int, s_len: int, h: int, dh: int, device: torch.device):
+    """The split plan of a cache of ``s_len`` logical rows and the
+    workspace and counter pointers sized for it: B * Hkv * splits *
+    (H/Hkv) * (dh + 2) floats, (m, l, acc) per head and split."""
+    plan = tuning.attn_splits(s_len)
+    need = b * h * (dh + 2) * plan.splits
+    counters, work = _SCRATCH.get(device) or (None, None)
+    if counters is None or counters.numel() < b * h:
+        counters = torch.zeros(max(b * h, 4096), dtype=torch.int32,
+                               device=device)
+    if work is None or work.numel() < need:
+        work = torch.empty(need, dtype=torch.float32, device=device)
+    _SCRATCH[device] = counters, work
+    return plan, work.data_ptr(), counters.data_ptr()
+
+
 def _lib():
     lib = build.load("mixfp4_attn_decode")
     fixed, paged = lib.mixfp4_attn_decode, lib.mixfp4_attn_decode_paged
     if fixed.argtypes is None:
-        fixed.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+        fixed.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                           + [ctypes.c_float] * 3 + [ctypes.c_void_p])
         fixed.restype = ctypes.c_int
-        paged.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+        paged.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
                           + [ctypes.c_float] * 3 + [ctypes.c_void_p])
         paged.restype = ctypes.c_int
     return lib

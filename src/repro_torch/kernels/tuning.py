@@ -1,4 +1,5 @@
-"""Variant and K split selection for the MixFP4 GEMMs on Hopper.
+"""Variant and split selection for the MixFP4 GEMMs and decode attention
+on Hopper.
 
 Counterpart of ``repro/kernels/tuning.py`` as far as the CUDA GEMMs
 (``csrc/mixfp4_gemm_tile.cuh``) need it.  The reference scores tiles with
@@ -23,12 +24,23 @@ here also makes rows independent of M); they start on the 32-deep slab
 grid and end at K; the threshold, the column tile and the split depth
 agree with the C header's constants; at M = 4 every gemma2-2b projection
 launches at least one CTA per SM of an H100.
+
+Decode attention (``csrc/mixfp4_attn_decode.cu``) splits the keys of
+each sequence into runs of :data:`SPLIT_S` logical positions, one CTA per
+(sequence, kv head, split), and merges the splits inside the launch.
+:func:`attn_splits` gives the launcher its split depth and the number of
+splits of a cache, which sizes the workspace; :func:`attn_split_range`
+the splits that hold a sequence's valid keys, the only ones that compute
+and take part in the merge.  Both depend on key positions alone, so a
+sequence's output is bitwise independent of its batchmates, of B and of
+the cache's capacity, and the paged entry equals the fixed one.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
-__all__ = ["GemmPlan", "select", "SPLIT_K", "DECODE_MAX_M", "BN"]
+__all__ = ["GemmPlan", "select", "SPLIT_K", "DECODE_MAX_M", "BN",
+           "AttnPlan", "attn_splits", "attn_split_range", "SPLIT_S"]
 
 #: K split depth: 9 splits at K = 2304, 36 at K = 9216.  A multiple of the
 #: prefill tile's 32-deep slab and at most ``MAX_SPLIT_K`` of the C side.
@@ -38,6 +50,9 @@ DECODE_MAX_M = 64
 #: the decode variant's column tile (``DBN``): the workspace's row pitch is
 #: this times the number of column tiles
 BN = 64
+#: decode attention's key split (``SPLIT_S`` in the C source): 32 splits
+#: at 8192 keys; a multiple of the KV pool's 16-row page
+SPLIT_S = 256
 
 
 class GemmPlan(NamedTuple):
@@ -54,3 +69,30 @@ def select(m: int, k: int) -> GemmPlan:
         raise ValueError(f"M={m}, K={k}: K must be a positive multiple "
                          "of 16")
     return GemmPlan(m <= DECODE_MAX_M, SPLIT_K, -(-k // SPLIT_K))
+
+
+class AttnPlan(NamedTuple):
+    """What the attention wrappers pass to the C launchers for one call."""
+
+    split_s: int
+    splits: int
+
+
+def attn_splits(s_len: int) -> AttnPlan:
+    """The plan for a cache of ``s_len`` logical rows per sequence (S, or
+    max_pages * page_len): splits start at multiples of :data:`SPLIT_S`;
+    ``splits`` (at least 1) is the grid's split axis."""
+    if s_len < 0:
+        raise ValueError(f"S={s_len}: expected a row count >= 0")
+    return AttnPlan(SPLIT_S, max(1, -(-s_len // SPLIT_S)))
+
+
+def attn_split_range(length: int, window: int, s_len: int) -> range:
+    """The splits holding a valid key of a sequence of ``length`` rows
+    (``kpos < length`` and, for ``window > 0``,
+    ``kpos > length - 1 - window``) in a cache of ``s_len`` rows."""
+    hi = min(length, s_len)
+    lo = max(0, length - window) if window > 0 else 0
+    if lo >= hi:
+        return range(0)
+    return range(lo // SPLIT_S, (hi - 1) // SPLIT_S + 1)

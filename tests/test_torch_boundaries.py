@@ -132,17 +132,22 @@ def test_kernel_wrappers_reject_other_devices():
 
 def test_build_key_follows_included_headers(tmp_path, monkeypatch):
     """A cached kernel library is keyed on its source and every header the
-    source includes: editing the shared block-math header rebuilds exactly
-    the sources that include it."""
+    source includes: editing a shared header rebuilds exactly the sources
+    that include it (the block-math header: every source; the GEMM tile
+    header: the two GEMM sources)."""
     import shutil
     from repro_torch.kernels import build
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", csrc)
-    before = {name: build._target(name) for name in build.SOURCES}
-    header = csrc / "mixfp4_block_math.cuh"
-    header.write_text(header.read_text() + "\n// edited\n")
-    after = {name: build._target(name) for name in build.SOURCES}
-    assert {n for n in build.SOURCES if before[n] != after[n]} == {
-        "mixfp4_quant", "mixfp4_gemm_w4a16", "mixfp4_gemm_w4a4",
-        "fwht_rows"}
+    for name, want in (("mixfp4_gemm_tile.cuh",
+                        {"mixfp4_gemm_w4a16", "mixfp4_gemm_w4a4"}),
+                       ("mixfp4_block_math.cuh",
+                        {"mixfp4_quant", "mixfp4_gemm_w4a16",
+                         "mixfp4_gemm_w4a4", "fwht_rows",
+                         "mixfp4_attn_decode"})):
+        before = {n: build._target(n) for n in build.SOURCES}
+        header = csrc / name
+        header.write_text(header.read_text() + "\n// edited\n")
+        after = {n: build._target(n) for n in build.SOURCES}
+        assert {n for n in build.SOURCES if before[n] != after[n]} == want

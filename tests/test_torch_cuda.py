@@ -12,7 +12,9 @@ each GEMM's rows bitwise independent of M, across its decode (M <= 64)
 and prefill variants, and repeat calls bitwise equal;
 attention 1e-4; the fused W4A4 kernel bitwise equal to the quantizer
 followed by the packed W4A4 kernel on the card; the paged attention
-kernel bitwise equal to the fixed-slot one on the gathered rows.
+kernel bitwise equal to the fixed-slot one on the gathered rows, and a
+sequence's attention output bitwise independent of B and of the cache's
+capacity (the key splits come from key positions alone).
 """
 import numpy as np
 import pytest
@@ -30,13 +32,26 @@ from repro_torch.serving.engine import Request, ServeEngine  # noqa: E402
 QUANT_MODES = [{}, {"per_row": True}, {"scale32": 1.0},
                {"scale32": 0.37, "per_row": True}]
 ATTN_CASES = [
-    # (b, s, hkv, group, dh, window, softcap)
+    # (b, s, hkv, group, dh, window, softcap[, lengths]); lengths drawn
+    # from the seed where not given.  SPLIT_S = 256 keys per split.
     (2, 32, 2, 2, 32, 0, 0.0),
     (3, 24, 1, 4, 48, 0, 0.0),
     (2, 130, 2, 1, 32, 7, 30.0),
     (1, 16, 3, 2, 16, 5, 0.0),
     (4, 600, 4, 2, 256, 64, 50.0),      # gemma2-2b heads, local window
+    (3, 640, 2, 2, 64, 0, 50.0, [640, 577, 300]),    # 2.5 splits
+    (3, 700, 2, 3, 32, 300, 30.0, [700, 400, 513]),  # window over a boundary
+    (3, 768, 1, 2, 48, 0, 0.0, [256, 512, 768]),     # multiples of SPLIT_S
+    (2, 300, 1, 8, 256, 0, 50.0, [300, 257]),        # g = 8 at dh = 256
+    (3, 300, 2, 2, 32, 0, 30.0, [0, 300, 1]),        # no valid key: zeros
 ]
+
+
+def _attn_lengths(case, s: int, gen) -> torch.Tensor:
+    b, lens = case[0], case[7:]
+    if lens:
+        return torch.tensor(lens[0], dtype=torch.int32)
+    return torch.randint(1, s + 1, (b,), generator=gen, dtype=torch.int32)
 
 
 @pytest.fixture
@@ -221,13 +236,12 @@ def test_gemm_kernels_vs_plain_on_both_variants(cuda, m, kind):
 
 @pytest.mark.parametrize("case", ATTN_CASES)
 def test_attn_kernel_vs_plain(cuda, case):
-    b, s, hkv, g, dh, window, softcap = case
+    b, s, hkv, g, dh, window, softcap = case[:7]
     gen = torch.Generator().manual_seed(s)
     q = torch.randn(b, hkv * g, dh, generator=gen)
     kp, ks = quantize_kv_rows(torch.randn(b, s, hkv, dh, generator=gen))
     vp, vs = quantize_kv_rows(torch.randn(b, s, hkv, dh, generator=gen))
-    lengths = torch.randint(1, s + 1, (b,), generator=gen,
-                            dtype=torch.int32)
+    lengths = _attn_lengths(case, s, gen)
     args = (q, kp, ks, vp, vs, lengths)
     got = mixfp4_attn.mixfp4_attn_decode(*[a.to(cuda) for a in args],
                                          window=window, softcap=softcap)
@@ -241,14 +255,13 @@ def test_paged_attn_kernel_bitwise_vs_fixed(cuda, case):
     """The rows of a fixed cache scattered over a permuted pool (junk wire
     bytes in the trash page 0, which the tables' unused tail points at):
     the paged kernel equals the fixed kernel bit for bit."""
-    b, s, hkv, g, dh, window, softcap = case
+    b, s, hkv, g, dh, window, softcap = case[:7]
     page_len = 16
     gen = torch.Generator().manual_seed(s + 1)
     q = torch.randn(b, hkv * g, dh, generator=gen)
     fixed = [*quantize_kv_rows(torch.randn(b, s, hkv, dh, generator=gen)),
              *quantize_kv_rows(torch.randn(b, s, hkv, dh, generator=gen))]
-    lengths = torch.randint(1, s + 1, (b,), generator=gen,
-                            dtype=torch.int32)
+    lengths = _attn_lengths(case, s, gen)
     mp = -(-s // page_len)
     n_used = -(-lengths // page_len)
     perm = 1 + torch.randperm(b * mp, generator=gen)
@@ -277,6 +290,61 @@ def test_paged_attn_kernel_bitwise_vs_fixed(cuda, case):
                                                 window=window,
                                                 softcap=softcap)
     assert float((got.cpu() - plain).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("window", [0, 300])
+def test_attn_rows_bitwise_independent_of_batch_and_capacity(cuda, window):
+    """Each sequence's output of a B = 4 call equals its B = 1 call at the
+    same capacity, at a smaller one (its rows cut to a page past its
+    length) and at a larger one (junk rows appended), bitwise, fixed and
+    paged; repeat calls are bitwise equal."""
+    b, s, hkv, g, dh, page_len = 4, 1100, 2, 2, 64, 16
+    gen = torch.Generator().manual_seed(11)
+    q = torch.randn(b, hkv * g, dh, generator=gen).to(cuda)
+    fixed = [a.to(cuda) for a in (
+        *quantize_kv_rows(torch.randn(b, s, hkv, dh, generator=gen)),
+        *quantize_kv_rows(torch.randn(b, s, hkv, dh, generator=gen)))]
+    junk = [a.to(cuda) for a in (
+        *quantize_kv_rows(30 * torch.randn(b, 333, hkv, dh, generator=gen)),
+        *quantize_kv_rows(30 * torch.randn(b, 333, hkv, dh, generator=gen)))]
+    lengths = torch.tensor([1100, 256, 513, 1], dtype=torch.int32,
+                           device=cuda)
+    kw = {"window": window, "softcap": 50.0}
+    ref = mixfp4_attn.mixfp4_attn_decode(q, *fixed, lengths, **kw)
+    assert torch.equal(ref, mixfp4_attn.mixfp4_attn_decode(
+        q, *fixed, lengths, **kw))
+    # the same rows in a pool: page i of sequence b is pool page
+    # 1 + b * mp + i, the tables' tail points at the trash page 0
+    mp = -(-s // page_len)
+    slabs = []
+    for a in fixed:
+        pad = torch.zeros((b, mp * page_len - s, *a.shape[2:]),
+                          dtype=a.dtype, device=cuda)
+        pages = torch.cat([a, pad], 1).reshape(b * mp, page_len,
+                                               *a.shape[2:])
+        slabs.append(torch.cat([torch.zeros_like(pages[:1]), pages]))
+    bt = (1 + torch.arange(b * mp, dtype=torch.int32,
+                           device=cuda)).reshape(b, mp)
+    paged = mixfp4_attn.mixfp4_attn_decode_paged(q, *slabs, bt, lengths,
+                                                 **kw)
+    assert torch.equal(paged, ref)
+    for i in range(b):
+        n = int(lengths[i])
+        one = lengths[i:i + 1]
+        cut = -(-n // page_len) * page_len + page_len
+        for cache in ([a[i:i + 1] for a in fixed],
+                      [a[i:i + 1, :cut] for a in fixed],
+                      [torch.cat([a[i:i + 1], j[i:i + 1]], 1)
+                       for a, j in zip(fixed, junk)]):
+            got = mixfp4_attn.mixfp4_attn_decode(q[i:i + 1], *cache, one,
+                                                 **kw)
+            assert torch.equal(got[0], ref[i]), (i, cache[0].shape[1])
+        wide = torch.cat([bt[i:i + 1], torch.zeros(
+            (1, 40), dtype=torch.int32, device=cuda)], 1)
+        for table in (bt[i:i + 1], bt[i:i + 1, :-(-n // page_len)], wide):
+            got = mixfp4_attn.mixfp4_attn_decode_paged(
+                q[i:i + 1], *slabs, table, one, **kw)
+            assert torch.equal(got[0], ref[i]), (i, table.shape[1])
 
 
 def test_paged_chunked_engine_on_the_card_launches_the_paged_kernel(cuda):

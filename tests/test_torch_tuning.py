@@ -1,4 +1,4 @@
-"""The port's GEMM split selector (``repro_torch/kernels/tuning.py``).
+"""The port's split selectors (``repro_torch/kernels/tuning.py``).
 
 CPU only.  The CUDA GEMMs take the variant and the K split depth from
 ``tuning.select``; these tests hold its contracts: splits from K alone (so
@@ -6,6 +6,13 @@ a row's output is bitwise independent of M and N), boundaries on the
 32-deep slab grid and ending at K, the decode/prefill threshold, column
 tile and split depth equal to the C header's constants, and enough CTAs
 at decode M for every SM of an H100 on every gemma2-2b projection.
+
+Decode attention takes its key split from ``tuning.attn_splits`` and
+``tuning.attn_split_range``: boundaries from key position alone (so a
+sequence's output is bitwise independent of B and of the cache's
+capacity, and paged equals fixed), ``SPLIT_S`` a multiple of the KV
+pool's page and equal to the C source's, and at least one non-empty CTA
+per SM at ``chip_smoke.py``'s phase-2 shape.
 
   PYTHONPATH=src python -m pytest -q tests/test_torch_tuning.py
 """
@@ -20,6 +27,7 @@ from repro_torch.kernels import mixfp4_gemm, tuning
 
 ROOT = Path(__file__).resolve().parents[1]
 HEADER = ROOT / "src" / "repro_torch" / "csrc" / "mixfp4_gemm_tile.cuh"
+ATTN_SRC = HEADER.parent / "mixfp4_attn_decode.cu"
 KS = [16, 32, 48, 208, 256, 272, 2048, 2304, 4096, 9216, 9232]
 
 
@@ -31,8 +39,8 @@ def _chip_smoke():
     return mod
 
 
-def _header_constants() -> dict[str, int]:
-    text = HEADER.read_text()
+def _header_constants(path: Path = HEADER) -> dict[str, int]:
+    text = path.read_text()
     found = dict(re.findall(r"constexpr int (\w+) = (\d+);", text))
     return {k: int(v) for k, v in found.items()}
 
@@ -123,3 +131,91 @@ def test_decode_plan_arguments_and_workspace(mkn):
 def test_prefill_plan_has_no_workspace():
     assert mixfp4_gemm._plan(65, 2304, 1024, torch.device("cpu")) == (
         tuning.SPLIT_K, 0, None, None)
+
+
+# ---------------------------------------------------------------------------
+# decode attention
+# ---------------------------------------------------------------------------
+def _keys(length: int, window: int, s_len: int) -> list[int]:
+    lo = max(0, length - window) if window > 0 else 0
+    return list(range(lo, min(length, s_len)))
+
+
+ATTN_SEQS = [(1, 0), (255, 0), (256, 0), (257, 0), (512, 0), (8192, 0),
+             (600, 100), (1000, 300), (4532, 4096), (8192, 4096), (0, 0)]
+
+
+@pytest.mark.parametrize("seq", ATTN_SEQS)
+def test_attn_splits_depend_on_key_position_alone(seq):
+    """A sequence's non-empty splits hold exactly its valid keys, split
+    at multiples of SPLIT_S, and are the same at every capacity that holds
+    the sequence, however many splits the capacity has."""
+    length, window = seq
+    ranges = set()
+    for s_len in (max(length, 1), length + 16, length + 300, 4 * 8192):
+        plan = tuning.attn_splits(s_len)
+        assert plan.split_s == tuning.SPLIT_S
+        assert plan.splits == max(1, -(-s_len // tuning.SPLIT_S))
+        rng = tuning.attn_split_range(length, window, s_len)
+        assert all(0 <= sp < plan.splits for sp in rng)
+        keys = _keys(length, window, s_len)
+        assert {k // tuning.SPLIT_S for k in keys} == set(rng)
+        ranges.add((rng.start, rng.stop) if rng else None)
+    assert len(ranges) == 1
+
+
+def test_attn_split_and_page_constants_match_the_c_source():
+    from repro_torch.serving.engine import ServeEngine
+    import inspect
+
+    c = _header_constants(ATTN_SRC)
+    assert c["SPLIT_S"] == tuning.SPLIT_S
+    assert c["SPLIT_S"] == c["NT"] // 32 * c["BS"]   # 32 keys per warp
+    page = inspect.signature(ServeEngine).parameters["kv_page_len"].default
+    assert tuning.SPLIT_S % page == 0
+    assert tuning.SPLIT_S % _chip_smoke().PAGE_LEN == 0
+
+
+def test_attn_phase2_shapes_fill_every_sm():
+    """chip_smoke.py's phase-2 attention shapes (B = 4, S = 8192, Hkv = 4,
+    global layer) launch at least one non-empty CTA per SM of an H100."""
+    import numpy as np
+
+    fixed = np.random.RandomState(4).randint(1, 8193, (4,))
+    fixed[0] = 8192
+    rng = np.random.RandomState(7)
+    rng.randn(4, 8, 256)                                # q
+    for _ in range(2):
+        rng.randn(4, 8192, 4, 256)                      # K, then V rows
+    paged = [8192, *rng.randint(1, 8193, 3)]
+    for lengths in (fixed, paged):
+        ctas = 4 * sum(len(tuning.attn_split_range(int(n), 0, 8192))
+                       for n in lengths)
+        assert ctas >= H100_SMS, (lengths, ctas)
+
+
+@pytest.mark.parametrize("s_len", [-1, -256])
+def test_attn_splits_reject_negative_capacity(s_len):
+    with pytest.raises(ValueError):
+        tuning.attn_splits(s_len)
+
+
+@pytest.mark.parametrize("bshd", [(4, 8192, 8, 256), (1, 16, 2, 32),
+                                  (3, 600, 24, 48)])
+def test_attn_plan_arguments_and_workspace(bshd):
+    """The attention wrappers' plan and scratch: an f32 workspace of at
+    least B * H * (dh + 2) floats per split and zeroed counters, one per
+    (sequence, kv head) at least, kept per device and reused."""
+    from repro_torch.kernels import mixfp4_attn
+
+    b, s, h, dh = bshd
+    dev = torch.device("cpu")
+    plan, work_ptr, counters_ptr = mixfp4_attn._plan(b, s, h, dh, dev)
+    assert plan == tuning.attn_splits(s)
+    counters, work = mixfp4_attn._SCRATCH[dev]
+    assert work.dtype == torch.float32 and work_ptr == work.data_ptr()
+    assert work.numel() >= b * h * (dh + 2) * plan.splits
+    assert counters_ptr == counters.data_ptr()
+    assert counters.numel() >= b * h and not counters.any()
+    assert mixfp4_attn._plan(b, s, h, dh, dev) == (plan, work_ptr,
+                                                   counters_ptr)
