@@ -9,7 +9,10 @@ Phases (any failed check raises, so the script exits non-zero):
 2. hold each kernel against its plain PyTorch version on the card at
    gemma2-2b shapes, and time kernel, plain version and one library call;
    the fused W4A4 kernel must also equal the quantizer followed by the
-   packed W4A4 kernel bitwise;
+   packed W4A4 kernel bitwise, with its row scale from the RHT row-scale
+   kernel; the RHT row scale (with NaN, Inf and zero rows) and the KV-cache
+   write (decode and 4500-row prefill, fixed slots and permuted pool) are
+   bitwise their plain versions;
    the paged attention kernel must equal the fixed one bitwise, the
    fixed one its recorded output digest, and each sequence's attention
    output must be bitwise the same at B = 1 and B = 4 and at three cache
@@ -138,6 +141,11 @@ def bound(n_bytes: float, n_ops: float, ops_rate: float):
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
+# f32 operations per quantized value (the scale multiply, the block max and
+# two candidates' scale, round, decode, error and sum), for the bound
+QUANT_OPS_PER_VALUE = 15
+
+
 def check_quant(dev, flush) -> dict:
     from repro_torch.kernels import mixfp4_quant as Q
     from repro_torch.models.base import KV_SCALE32
@@ -165,24 +173,116 @@ def check_quant(dev, flush) -> dict:
     m = 16                                              # decode: B * Hkv
     x = torch.randn(m, 256, device=dev)
     ones = torch.ones(m, 1, device=dev)
-    ms = bench(lambda: Q.mixfp4_quant_rows(x, scale32=KV_SCALE32), 200,
-               flush)
+    s32_dev = torch.tensor(KV_SCALE32, device=dev)
+    ms = bench(lambda: Q.mixfp4_quant_rows(x, scale32=s32_dev), 200, flush)
+    dev_ms = bench(lambda: Q.mixfp4_quant_rows(x, scale32=s32_dev), 200,
+                   flush, keep_ahead=True)
     plain_ms = bench(lambda: Q.quant_rows_plain(x, ones), 50, flush)
     xb = torch.randn(4 * 4544, 256, device=dev)
-    ms_pre = bench(lambda: Q.mixfp4_quant_rows(xb, scale32=KV_SCALE32), 50,
+    ms_pre = bench(lambda: Q.mixfp4_quant_rows(xb, scale32=s32_dev), 50,
                    flush)
-    b_ms, b_by = bound(m * 256 * 4 + m * 128 + m * 16, 0, F32_OPS_PER_S)
+    b_ms, b_by = bound(m * 256 * 4 + m * 128 + m * 16 + 4,
+                       QUANT_OPS_PER_VALUE * m * 256, F32_OPS_PER_S)
     bp_ms, _ = bound(xb.numel() * (4 + 0.5 + 1 / 16), 0, F32_OPS_PER_S)
-    log(f"[quant] decode M=16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {b_ms:.6f} ms; prefill M=18176: kernel {ms_pre:.4f} ms, "
-        f"bound {bp_ms:.4f} ms")
+    log(f"[quant] decode M=16: kernel {ms:.4f} ms (card alone "
+        f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms; "
+        f"prefill M=18176: kernel {ms_pre:.4f} ms, bound {bp_ms:.4f} ms")
     return {"name": "mixfp4_quant_rows", "route": "cuda",
             "source": "src/repro_torch/csrc/mixfp4_quant.cu",
             "replaces": "src/repro/kernels/mixfp4_quant.py:148",
             "max_abs_err": float(worst), "tolerance": "bitwise",
-            "shape": "M=16 (B*Hkv), K=256, pinned scale32",
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None}
+            "shape": "M=16 (B*Hkv), K=256, pinned scale32 on the card",
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def _kv_leaves(rows: tuple, hkv: int, dh: int, dev, gen) -> list:
+    """K and V cache leaves (payload, scales each) of random wire bytes
+    with ``rows`` = (D0, D1) storage rows."""
+    return [torch.randint(0, 256, (*rows, hkv, w), dtype=torch.uint8,
+                          device=dev, generator=gen)
+            for w in (dh // 2, dh // 16, dh // 2, dh // 16)]
+
+
+def check_quant_kv(dev, flush) -> dict:
+    """The KV write against its plain version (the quantizer, then the
+    indexed writes) on the card, bitwise: the phase-3 decode shape (B=4,
+    Hkv=4, dh=256) into fixed slots of 8192 rows and into a permuted
+    2049-page pool (one idle lane writing the trash page 0, the one page
+    not compared), and a 4500-row prefill, fixed from row 0 and paged from
+    mid-page row 1000.  Times the decode write against its plain version."""
+    from repro_torch.kernels import mixfp4_quant as Q
+
+    b, hkv, dh, s_max, pages = 4, 4, 256, 8192, 2049
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rng = np.random.RandomState(9)
+    perm = 1 + rng.permutation(pages - 1)
+    bt = torch.tensor(perm[:b * (s_max // PAGE_LEN)].reshape(b, -1),
+                      dtype=torch.int32, device=dev)
+    bt_idle = bt.clone()
+    bt_idle[3] = 0
+    one = torch.ones((), device=dev)
+    lens = torch.tensor([1190, 1200, 332, 4532], dtype=torch.int32,
+                        device=dev)
+    lens_idle = lens.clone()
+    lens_idle[3] = 0
+
+    def rows_of(n):
+        return [(3 * torch.randn(1 if n > 1 else b, n, hkv, dh, device=dev,
+                                 generator=gen)).to(torch.bfloat16)
+                for _ in range(2)]
+
+    cases = [("fixed decode", rows_of(1), (b, s_max), lens, None),
+             ("paged decode", rows_of(1), (pages, PAGE_LEN), lens_idle,
+              bt_idle),
+             ("fixed prefill 4500", rows_of(4500), (1, s_max), 0, None),
+             ("paged prefill 4500", rows_of(4500), (pages, PAGE_LEN), 1000,
+              bt[:1])]
+    for name, (k, v), rows, pos, tables in cases:
+        leaves = _kv_leaves(rows, hkv, dh, dev, gen)
+        want = [a.clone() for a in leaves]
+        Q.quant_kv_plain(k, v, *want, one, one, pos, tables)
+        Q.mixfp4_quant_kv(k, v, *leaves, one, one, pos, block_tables=tables)
+        torch.cuda.synchronize()
+        first = 1 if tables is not None and name.endswith("decode") else 0
+        bad = sum(int((g[first:] != w[first:]).sum())
+                  for g, w in zip(leaves, want))
+        if bad:
+            raise AssertionError(f"KV write {name}: {bad} bytes differ")
+    log("[quant-kv] B=4 x Hkv=4 x dh=256 decode rows into 8192 fixed slots "
+        "and a permuted 2049-page pool (idle lane in the trash page), "
+        "4500-row prefills fixed from row 0 and paged from row 1000: bytes "
+        "bitwise equal to the quantizer + indexed writes")
+    k, v = rows_of(1)
+    leaves = _kv_leaves((b, s_max), hkv, dh, dev, gen)
+    ms = bench(lambda: Q.mixfp4_quant_kv(k, v, *leaves, one, one, lens),
+               200, flush)
+    dev_ms = bench(lambda: Q.mixfp4_quant_kv(k, v, *leaves, one, one, lens),
+                   200, flush, keep_ahead=True)
+    plain_ms = bench(lambda: Q.quant_kv_plain(k, v, *leaves, one, one, lens),
+                     50, flush)
+    kb, vb = rows_of(4500)
+    pre = _kv_leaves((1, s_max), hkv, dh, dev, gen)
+    ms_pre = bench(lambda: Q.mixfp4_quant_kv(kb, vb, *pre, one, one, 0), 50,
+                   flush)
+    values = 2 * b * hkv * dh
+    b_ms, b_by = bound(values * 2 + values * (0.5 + 1 / 16) + b * 4 + 8,
+                       QUANT_OPS_PER_VALUE * values, F32_OPS_PER_S)
+    vp = 2 * 4500 * hkv * dh
+    bp_ms, _ = bound(vp * (2 + 0.5 + 1 / 16), QUANT_OPS_PER_VALUE * vp,
+                     F32_OPS_PER_S)
+    log(f"[quant-kv] decode K+V write (B=4, Hkv=4, dh=256, fixed): kernel "
+        f"{ms:.4f} ms (card alone {dev_ms:.4f}), plain {plain_ms:.4f} ms, "
+        f"bound {b_ms:.6f} ms ({b_by}); prefill 4500 rows: kernel "
+        f"{ms_pre:.4f} ms, bound {bp_ms:.5f} ms")
+    return {"name": "mixfp4_quant_kv", "route": "cuda",
+            "source": "src/repro_torch/csrc/mixfp4_quant.cu",
+            "replaces": "src/repro/kernels/mixfp4_quant.py:148",
+            "max_abs_err": 0.0, "tolerance": "bitwise",
+            "shape": "one layer's K and V decode rows, B=4, Hkv=4, dh=256, "
+                     "into fixed slots",
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def check_gemm(dev, flush) -> dict:
@@ -613,7 +713,9 @@ def check_w4a4(dev, flush) -> list[dict]:
                                  (True, True)):
                 sg = signs if rht else None
                 xt = fwht.fwht_rows(x, sg) if rht else x
-                s32 = (scaling.row_scale(xt) if per_row
+                # the served path's row scale (one launch); fused must
+                # equal the quantizer's own scale and bytes below
+                s32 = (fwht.fwht_row_scale(x, sg) if per_row
                        else scaling.tensor_scale(x))
                 y = G.mixfp4_gemm_w4a4_fused(x, s32, qt.payload, qt.scales,
                                              qt.scale32, per_row=per_row,
@@ -877,11 +979,31 @@ def one_launch(calls: dict):
         f"arithmetic): {sorted(others)}")
 
 
-def check_fwht(dev, flush) -> dict:
+def _special_rows(m: int, k: int, dev, gen) -> torch.Tensor:
+    """Activation-like rows, then rows that are zero, hold a NaN, one Inf,
+    two Infs in one 16-lane group (Inf - Inf = NaN after the RHT), or Inf
+    beside NaN: the row scale must keep torch.amax's NaN and Inf."""
+    x = _rows_like_activations(m, k, dev, gen)
+    special = torch.ones(5, k, device=dev)
+    special[0] = 0.0
+    special[1, 3] = float("nan")
+    special[2, k - 1] = float("inf")
+    special[3, 16:18] = float("inf")
+    special[4, 0], special[4, 5] = float("inf"), float("nan")
+    return torch.cat([x, special])
+
+
+# f32 operations per value of the RHT row scale: the sign multiply, four
+# butterfly adds, the normalising multiply, the max
+ROW_SCALE_OPS_PER_VALUE = 7
+
+
+def check_fwht(dev, flush) -> list[dict]:
     from repro_torch.kernels import fwht
     from repro_torch.models.base import rht_signs_on_grid
 
     gen = torch.Generator(device=dev).manual_seed(6)
+    n_scale = 0
     for k in sorted({k for k, _ in LAYER}):
         sg = rht_signs_on_grid(k, k, dev)
         for m in CHECK_MS:
@@ -889,8 +1011,19 @@ def check_fwht(dev, flush) -> dict:
             if not torch.equal(fwht.fwht_rows(x, sg),
                                fwht.fwht_rows_math(x, sg, 16)):
                 raise AssertionError(f"fwht_rows M={m} K={k} not bitwise")
+            x = _special_rows(m, k, dev, gen)
+            for signs in (sg, None):
+                got = fwht.fwht_row_scale(x, signs).view(torch.int32)
+                want = fwht.row_scale_plain(x, signs).view(torch.int32)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"fwht_row_scale M={m} K={k} "
+                                         f"rht={signs is not None} not "
+                                         "bitwise")
+                n_scale += 1
     log(f"[fwht] M in {CHECK_MS} x K in (2048, 2304, 9216), group 16: "
-        f"bitwise equal to the plain version")
+        f"bitwise equal to the plain version; fwht_row_scale with and "
+        f"without signs, with zero, NaN and Inf rows: bitwise equal to "
+        f"row_scale(fwht_rows_math) in {n_scale}/{n_scale} cases")
     m = 4                                    # one decode layer's 7 launches
     xs = {k: _rows_like_activations(m, k, dev, gen) for k, _ in LAYER}
     sg = {k: rht_signs_on_grid(k, k, dev) for k in xs}
@@ -901,30 +1034,56 @@ def check_fwht(dev, flush) -> dict:
     hadamard16 = hadamard16 * 0.25
     signed = {k: (x * sg[k]).reshape(-1, 16) for k, x in xs.items()}
     ks = [k for k, _ in LAYER]
-    ms = bench(lambda: [fwht.fwht_rows(xs[k], sg[k]) for k in ks], 50, flush)
-    plain_ms = bench(lambda: [fwht.fwht_rows_math(xs[k], sg[k], 16)
-                              for k in ks], 20, flush)
-    lib_ms = bench(lambda: [torch.matmul(signed[k], hadamard16)
-                            for k in ks], 50, flush)
+
+    def layer(fn):
+        return lambda: [fn(xs[k], sg[k]) for k in ks]
+
+    rows, scale = layer(fwht.fwht_rows), layer(fwht.fwht_row_scale)
+    t = {"rows": bench(rows, 50, flush),
+         "rows_dev": bench(rows, 50, flush, keep_ahead=True),
+         "rows_plain": bench(layer(lambda x, s: fwht.fwht_rows_math(x, s,
+                                                                    16)),
+                             20, flush),
+         "lib": bench(lambda: [torch.matmul(signed[k], hadamard16)
+                               for k in ks], 50, flush),
+         "scale": bench(scale, 50, flush),
+         "scale_dev": bench(scale, 50, flush, keep_ahead=True),
+         "scale_plain": bench(layer(fwht.row_scale_plain), 20, flush)}
     b_ms, b_by = bound(sum(2 * m * k * 4 + k * 4 for k in ks),
                        sum(m * k * 6 for k in ks), F32_OPS_PER_S)
+    bs_ms, bs_by = bound(sum(m * k * 4 + k * 4 + m * 4 for k in ks),
+                         sum(ROW_SCALE_OPS_PER_VALUE * m * k for k in ks),
+                         F32_OPS_PER_S)
     kb = max(k for k, _ in LAYER)
     xb = _rows_like_activations(PREFILL_M, kb, dev, gen)
     sgb = rht_signs_on_grid(kb, kb, dev)
     ms_pre = bench(lambda: fwht.fwht_rows(xb, sgb), 20, flush)
+    ms_pre_scale = bench(lambda: fwht.fwht_row_scale(xb, sgb), 20, flush)
     bp_ms, _ = bound(2 * xb.numel() * 4, 0, F32_OPS_PER_S)
-    log(f"[fwht] one decode layer's 7 launches (M=4): kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, torch.matmul of the signed rows with "
-        f"H16/4 (not bitwise) {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}); "
-        f"prefill M={PREFILL_M} K={kb}: kernel {ms_pre:.4f} ms, bound "
-        f"{bp_ms:.4f} ms")
-    return {"name": "fwht_rows", "route": "cuda",
-            "source": "src/repro_torch/csrc/fwht_rows.cu",
-            "replaces": "src/repro/kernels/fwht.py:55",
-            "max_abs_err": 0.0, "tolerance": "bitwise",
-            "shape": "7 launches of one decode layer, M=4, group 16",
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms}
+    bps_ms, _ = bound(xb.numel() * 4, ROW_SCALE_OPS_PER_VALUE * xb.numel(),
+                      F32_OPS_PER_S)
+    log(f"[fwht] one decode layer's 7 launches (M=4): fwht_rows kernel "
+        f"{t['rows']:.4f} ms (card alone {t['rows_dev']:.4f}), plain "
+        f"{t['rows_plain']:.4f} ms, torch.matmul of the signed rows with "
+        f"H16/4 (not bitwise) {t['lib']:.4f} ms, bound {b_ms:.6f} ms "
+        f"({b_by}); fwht_row_scale kernel {t['scale']:.4f} ms (card alone "
+        f"{t['scale_dev']:.4f}), plain {t['scale_plain']:.4f} ms, bound "
+        f"{bs_ms:.6f} ms ({bs_by}); prefill M={PREFILL_M} K={kb}: fwht_rows "
+        f"{ms_pre:.4f} ms (bound {bp_ms:.4f}), fwht_row_scale "
+        f"{ms_pre_scale:.4f} ms (bound {bps_ms:.4f})")
+    common = {"route": "cuda", "source": "src/repro_torch/csrc/fwht_rows.cu",
+              "replaces": "src/repro/kernels/fwht.py:55",
+              "max_abs_err": 0.0, "tolerance": "bitwise"}
+    return [dict(common, name="fwht_rows",
+                 shape="7 launches of one decode layer, M=4, group 16",
+                 ms=t["rows"], device_ms=t["rows_dev"],
+                 plain_ms=t["rows_plain"], bound_ms=b_ms, bound_by=b_by,
+                 library_ms=t["lib"]),
+            dict(common, name="fwht_row_scale",
+                 shape="7 launches of one decode layer, M=4, RHT group 16",
+                 ms=t["scale"], device_ms=t["scale_dev"],
+                 plain_ms=t["scale_plain"], bound_ms=bs_ms, bound_by=bs_by,
+                 library_ms=None)]
 
 
 # ---------------------------------------------------------------------------
@@ -1010,12 +1169,12 @@ def serve_path(dev, seed: int, tag: str, params=None, **kw) -> dict:
     n_pre, n_dec, n_l = (engine.prefill_dispatches, engine.decode_steps,
                          cfg.n_layers)
     per_pass = {name: 0 for name in counts}      # launches per model pass
-    per_pass["mixfp4_quant_rows"] = 2 * n_l      # the new K and V rows
+    per_pass["mixfp4_quant_kv"] = n_l            # the new K and V rows
     if engine.act_quant == "bf16":
         per_pass["mixfp4_gemm_w4a16"] = 7 * n_l
     else:                                        # "mixfp4" + RHT
         per_pass["mixfp4_gemm_w4a4_fused"] = 7 * n_l
-        per_pass["fwht_rows"] = 7 * n_l          # the per-row scales
+        per_pass["fwht_row_scale"] = 7 * n_l     # the per-row scales
     want = {name: c * (n_pre + n_dec) for name, c in per_pass.items()}
     attn = ("mixfp4_attn_decode" if engine.kv_pool is None
             else "mixfp4_attn_decode_paged")
@@ -1107,9 +1266,12 @@ def profile_decode(engine, seed: int, tag: str):
         if "memset" in kern.name.lower())
     trace_rows = {k: sum(c for key, c in rows.items() if k in key)
                   for k in ("w4a16_", "w4a4_", "attn_decode_kernel",
-                            "quant_rows_kernel", "fwht_rows_kernel")}
+                            "quant_rows_kernel", "quant_kv_kernel",
+                            "fwht_rows_kernel", "fwht_row_scale_kernel")}
+    launches = sum(rows.values()) / steps
     log(f"[profile] {tag} launches in the window: wrappers {wrapped}; "
-        f"trace rows {trace_rows}")
+        f"trace rows {trace_rows}; device launches per decode step "
+        f"{launches:.1f} (every kernel, memset and copy row)")
     if n_gemm != want or not all("_decode_kernel" in key for key in gemm):
         raise AssertionError(f"{tag} traced GEMM rows {gemm} ({n_gemm}, "
                              f"expected {want} decode-variant launches)")
@@ -1175,7 +1337,8 @@ def card_vs_cpu(dev, seed: int, w4a4: bool = False) -> dict:
     from the same packed bytes: W4A16, or with ``w4a4`` the fused W4A4 +
     RHT path, whose card logits must also equal the two-pass spelling's
     bitwise.  Returns the launch counts of the two-pass card run (the
-    path that drives the packed W4A4 kernel), or {}."""
+    path that drives the packed W4A4 kernel, ``fwht_rows`` and the
+    activation quantizer), or {}."""
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
@@ -1214,9 +1377,10 @@ def card_vs_cpu(dev, seed: int, w4a4: bool = False) -> dict:
     ops.reset_launch_counts()
     gpu = run(packed, dev, act)
     used = {k: v for k, v in ops.launch_counts().items() if v}
-    if w4a4 and set(used) != {"mixfp4_quant_rows", "mixfp4_attn_decode",
-                              "mixfp4_gemm_w4a4_fused", "fwht_rows"} or \
-            not w4a4 and set(used) != {"mixfp4_quant_rows",
+    if w4a4 and set(used) != {"mixfp4_quant_kv", "mixfp4_attn_decode",
+                              "mixfp4_gemm_w4a4_fused",
+                              "fwht_row_scale"} or \
+            not w4a4 and set(used) != {"mixfp4_quant_kv",
                                        "mixfp4_attn_decode",
                                        "mixfp4_gemm_w4a16"}:
         raise AssertionError(f"the card run took other kernels: {used}")
@@ -1238,11 +1402,12 @@ def card_vs_cpu(dev, seed: int, w4a4: bool = False) -> dict:
     two = run(packed, dev, ActQuant("mixfp4-2pass-rowscale", rht=True))
     counts = ops.launch_counts()
     n_l, passes = cfg.n_layers, 1 + len(forced)
-    want = {"mixfp4_quant_rows": 9 * n_l * passes, "mixfp4_gemm_w4a16": 0,
+    want = {"mixfp4_quant_rows": 7 * n_l * passes, "mixfp4_gemm_w4a16": 0,
             "mixfp4_attn_decode": n_l * len(forced),
             "mixfp4_attn_decode_paged": 0,
             "mixfp4_gemm_w4a4": 7 * n_l * passes,
-            "mixfp4_gemm_w4a4_fused": 0, "fwht_rows": 7 * n_l * passes}
+            "mixfp4_gemm_w4a4_fused": 0, "fwht_rows": 7 * n_l * passes,
+            "mixfp4_quant_kv": n_l * passes, "fwht_row_scale": 0}
     if counts != want:
         raise AssertionError(f"two-pass launch counts {counts}, expected "
                              f"{want}")
@@ -1365,9 +1530,10 @@ def main():
         f"({', '.join(report)})")
 
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-    kernels = [check_quant(dev, flush), check_gemm(dev, flush),
+    kernels = [check_quant(dev, flush), check_quant_kv(dev, flush),
+               check_gemm(dev, flush),
                check_attn(dev, flush), *check_w4a4(dev, flush),
-               check_fwht(dev, flush), check_attn_paged(dev, flush)]
+               *check_fwht(dev, flush), check_attn_paged(dev, flush)]
     del flush
     check_m_invariance(dev)
     # each kernel's launches: from the path run that drives it

@@ -1,6 +1,6 @@
 """Decode-step studies of the PyTorch/CUDA port on one GPU.
 
-Four commands, each for one CUDA device:
+Five commands, each for one CUDA device:
 
 ``ab --parent DIR [--rounds R]``
     Parent against change in alternating turns (parent, change, change,
@@ -13,8 +13,10 @@ Four commands, each for one CUDA device:
     (W4A16, and fused W4A4 + RHT), the card idle before each rep; and the
     decode step time at B = 4 over four 1024-token prompts of the
     fixed-slot W4A16 engine, the paged W4A16 engine with 512-token chunked
-    prefill, and the fixed-slot W4A4 + RHT engine.  Prints one JSON line
-    per turn and a summary of medians by tree.
+    prefill, and the fixed-slot W4A4 + RHT engine, and each engine's
+    device launches per decode step (kernel, memset and copy rows of three
+    steps traced with ``torch.profiler``).  Prints one JSON line per turn
+    and a summary of medians by tree.
 
 ``trace-drops [--windows N]``
     Traces N windows of five W4A4 + RHT decode steps (the engine of
@@ -33,6 +35,14 @@ Four commands, each for one CUDA device:
     and the byte bound: how the launch time scales with the splits and
     the CTAs.
 
+``rowscale-sweep``
+    Device time per launch of the RHT row-scale kernel (``fwht_row_scale``)
+    over M (decode and prefill) and the K of gemma2-2b's projections, for
+    each CTAs-per-row cluster size and thread count, from
+    ``torch.profiler``'s kernel rows with the L2 flushed before each call,
+    beside the plan ``kernels/tuning.py`` picks: the measurement that
+    plan rests on.
+
 ``trace-clock [--windows N]``
     Traces N windows of one decode-M GEMM call each (W4A16, then fused
     W4A4 + RHT, alternately), every window after a warm-up call, in two
@@ -46,6 +56,7 @@ Four commands, each for one CUDA device:
   python3 decode_study.py trace-drops --windows 24
   python3 decode_study.py trace-clock --windows 200
   python3 decode_study.py attn-sweep
+  python3 decode_study.py rowscale-sweep
 """
 from __future__ import annotations
 
@@ -157,14 +168,46 @@ def _wrapper_host_ms(dev, seed: int, reps: int = 50) -> dict:
     return out
 
 
+def _device_rows(prof) -> list:
+    """The device rows of a profile that are kernels, memsets or copies."""
+    from torch.autograd import DeviceType
+
+    return [ev for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)
+            and not ev.key.startswith("ProfilerStep")]
+
+
+def _launches_per_step(engine, steps: int = 3) -> float:
+    """Device launches (kernel, memset and copy rows) per decode step, from
+    ``steps`` steps traced after a warm-up step, the host idle 50 ms before
+    the first (``chip_smoke.py`` ``traced()``)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=steps,
+                                   repeat=1)) as prof:
+        engine.step()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(0.05)
+        for i in range(steps):
+            engine.step()
+            torch.cuda.synchronize()
+            if i < steps - 1:
+                prof.step()
+    return sum(ev.count for ev in _device_rows(prof)) / steps
+
+
 def turn(tree: Path, seed: int, steps: int) -> dict:
-    """One turn of ``ab``: wrapper host ms and decode step ms of ``tree``."""
+    """One turn of ``ab``: wrapper host ms, decode step ms and device
+    launches per decode step of ``tree``."""
     _import_tree(tree)
     dev = torch.device("cuda")
     res = {"tree": str(tree), "host_ms": _wrapper_host_ms(dev, seed),
-           "step_ms": {}}
+           "step_ms": {}, "launches": {}}
     for name, kw in ENGINES.items():
-        engine = _engine(dev, seed, steps, **kw)
+        engine = _engine(dev, seed, steps + 4, **kw)
         times = []
         for _ in range(steps):
             torch.cuda.synchronize()
@@ -173,6 +216,7 @@ def turn(tree: Path, seed: int, steps: int) -> dict:
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t) * 1e3)
         res["step_ms"][name] = statistics.median(times)
+        res["launches"][name] = _launches_per_step(engine)
         del engine
         torch.cuda.empty_cache()
     return res
@@ -197,7 +241,8 @@ def ab(parent: Path, rounds: int, seed: int, steps: int):
     for name, runs in results.items():
         summary[name] = {
             f"{kind}.{key}": statistics.median(r[kind][key] for r in runs)
-            for kind in ("host_ms", "step_ms") for key in runs[0][kind]}
+            for kind in ("host_ms", "step_ms", "launches")
+            for key in runs[0][kind]}
     log(f"[ab] {rounds} rounds of (parent, change, change, parent), "
         f"{steps} decode steps per engine per turn; medians over turns: "
         f"{json.dumps(summary)}")
@@ -206,7 +251,6 @@ def ab(parent: Path, rounds: int, seed: int, steps: int):
 def trace_drops(windows: int, seed: int):
     """Count the device kernel rows of traced decode windows against the
     wrappers' launches, one line per window."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     _import_tree(ROOT)
@@ -214,8 +258,8 @@ def trace_drops(windows: int, seed: int):
 
     kinds = {"mixfp4_gemm_w4a4_fused": "w4a4_",
              "mixfp4_attn_decode": "attn_decode_kernel",
-             "mixfp4_quant_rows": "quant_rows_kernel",
-             "fwht_rows": "fwht_rows_kernel"}
+             "mixfp4_quant_kv": "quant_kv_kernel",
+             "fwht_row_scale": "fwht_row_scale_kernel"}
     dev = torch.device("cuda")
     engine = _engine(dev, seed, 6 * windows + 8, **ENGINES["w4a4_rht"])
     steps = 5
@@ -238,10 +282,7 @@ def trace_drops(windows: int, seed: int):
                     prof.step()
             torch.cuda.synchronize()
             after = ops.launch_counts()
-        rows = [ev for ev in prof.key_averages()
-                if ev.device_type == DeviceType.CUDA
-                and not getattr(ev, "is_user_annotation", False)
-                and not ev.key.startswith("ProfilerStep")]
+        rows = _device_rows(prof)
         n_rows = sum(ev.count for ev in rows)
         lost = {k: after[k] - before[k]
                 - sum(ev.count for ev in rows if sub in ev.key)
@@ -408,6 +449,56 @@ def attn_sweep(seed: int, calls: int = 10):
             f"{bound_us:.2f} us")
 
 
+def rowscale_sweep(seed: int, calls: int = 10):
+    """Device us per launch of the RHT row-scale kernel at M in (1, 4, 16,
+    64, 4544) and K in (2048, 2304, 9216), for 1, 2, 4 and 8 CTAs per row
+    and 64, 128 and 256 threads per CTA, L2 flushed before each call; one
+    line per (M, K) with the fastest plan and the plan tuning picks."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _import_tree(ROOT)
+    from repro_torch.kernels import fwht, tuning
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    for m in (1, 4, 16, 64, 4544):
+        for k in (2048, 2304, 9216):
+            x = torch.randn(m, k, device=dev, generator=gen)
+            signs = torch.where(torch.rand(k, device=dev, generator=gen)
+                                < 0.5, -1.0, 1.0)
+            us = {}
+            for ctas in (1, 2, 4, 8):
+                for threads in (64, 128, 256):
+                    def fn():
+                        fwht._row_scale_launch(x, signs, ctas, threads)
+                    fn()
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        time.sleep(0.05)
+                        for _ in range(calls):
+                            flush.zero_()
+                            fn()
+                        torch.cuda.synchronize()
+                    rows = [ev for ev in _device_rows(prof)
+                            if "row_scale_kernel" in ev.key]
+                    n = sum(ev.count for ev in rows)
+                    us[ctas, threads] = sum(
+                        ev.self_device_time_total for ev in rows) / max(n, 1)
+                    if n != calls:
+                        log(f"[rowscale-sweep] M={m} K={k} {ctas}x{threads}: "
+                            f"{n} of {calls} kernel rows traced")
+            best = min(us, key=us.get)
+            plan = tuning.row_scale_plan(m, k)
+            log(f"[rowscale-sweep] M={m} K={k}: us per launch by (CTAs per "
+                f"row, threads) " + ", ".join(
+                    f"{c}x{t} {v:.2f}" for (c, t), v in us.items())
+                + f"; fastest {best[0]}x{best[1]} {us[best]:.2f}; tuning "
+                f"picks {plan.ctas}x{plan.threads} "
+                f"{us.get((plan.ctas, plan.threads), float('nan')):.2f}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -421,6 +512,7 @@ def main():
     p = sub.add_parser("trace-drops")
     p.add_argument("--windows", type=int, default=24)
     sub.add_parser("attn-sweep")
+    sub.add_parser("rowscale-sweep")
     p = sub.add_parser("trace-clock")
     p.add_argument("--windows", type=int, default=200)
     p.add_argument("--pad", type=float, default=0.05)
@@ -440,6 +532,8 @@ def main():
         print(json.dumps(turn(args.tree, args.seed, args.steps)))
     elif args.cmd == "attn-sweep":
         attn_sweep(args.seed)
+    elif args.cmd == "rowscale-sweep":
+        rowscale_sweep(args.seed)
     elif args.cmd == "trace-clock":
         trace_clock(args.windows, args.pad, args.seed)
     else:

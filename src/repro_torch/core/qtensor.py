@@ -330,10 +330,9 @@ def qmm(x: Union[torch.Tensor, QTensor], w: QTensor, *,
                                device=x2p.device)
     elif per_row_act:
         # the row scale of the values the prologue quantizes: the rows
-        # after the RHT when signs ride along
-        xt = (ops.rht_rows(x2p, act_rht_signs)
-              if act_rht_signs is not None else x2p)
-        s32x = _act_scale32_like_quantize_rows(xt, per_row=True)
+        # after the RHT when signs ride along (one launch, no transformed
+        # copy of the rows)
+        s32x = ops.rht_row_scale(x2p, act_rht_signs)
     else:
         s32x = _act_scale32_like_quantize_rows(x2)
     y = ops.gemm_w4a4_fused(x2p, s32x, w.payload, w.scales, w.scale32,

@@ -12,8 +12,9 @@ from __future__ import annotations
 
 from repro_torch.kernels import fwht, mixfp4_attn, mixfp4_gemm, mixfp4_quant
 
-__all__ = ["quantize_rows", "pack_weight_qt", "gemm_w4a16", "gemm_w4a4",
-           "gemm_w4a4_fused", "rht_rows", "attn_decode_packed",
+__all__ = ["quantize_rows", "quantize_kv", "pack_weight_qt", "gemm_w4a16",
+           "gemm_w4a4", "gemm_w4a4_fused", "rht_rows", "rht_row_scale",
+           "attn_decode_packed",
            "attn_decode_paged", "launch_counts", "reset_launch_counts",
            "KERNELS"]
 
@@ -26,6 +27,8 @@ KERNELS = {
     "mixfp4_gemm_w4a4": (mixfp4_gemm, "launches_w4a4"),
     "mixfp4_gemm_w4a4_fused": (mixfp4_gemm, "launches_w4a4_fused"),
     "fwht_rows": (fwht, "launches"),
+    "mixfp4_quant_kv": (mixfp4_quant, "launches_kv"),
+    "fwht_row_scale": (fwht, "launches_row_scale"),
 }
 
 
@@ -44,6 +47,17 @@ def quantize_rows(x, *, scale32=None, per_row: bool = False):
     rows written at different steps agree)."""
     return mixfp4_quant.mixfp4_quant_rows(x, scale32=scale32,
                                           per_row=per_row)
+
+
+def quantize_kv(k, v, ck, cv, pos, *, block_tables=None):
+    """Quantize a layer's new K and V rows (B, S, Hkv, dh) straight into
+    their rows of the packed cache leaves ``ck``, ``cv`` (QTensors) in
+    place, under the leaves' own scale32.  ``pos``: a host int (a prefill
+    from that row) or (B,) device positions (a decode step);
+    ``block_tables`` addresses the paged pool's slabs."""
+    mixfp4_quant.mixfp4_quant_kv(k, v, ck.payload, ck.scales, cv.payload,
+                                 cv.scales, ck.scale32, cv.scale32, pos,
+                                 block_tables=block_tables)
 
 
 def pack_weight_qt(w, method: str = "mixfp4",
@@ -80,6 +94,12 @@ def gemm_w4a4_fused(x, x_scale32, payload, scales, scale32, *,
 def rht_rows(x, signs, *, group: int = 16):
     """Grouped random Hadamard transform of (M, K) rows."""
     return fwht.fwht_rows(x, signs, group=group)
+
+
+def rht_row_scale(x, signs=None):
+    """(M,) per-row W4A4 scale of the grouped (16) RHT of f32 rows (M, K)
+    (of the rows themselves without signs), in one launch."""
+    return fwht.fwht_row_scale(x, signs)
 
 
 def attn_decode_packed(q, k_payload, k_scales, v_payload, v_scales,

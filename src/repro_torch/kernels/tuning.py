@@ -34,13 +34,22 @@ the splits that hold a sequence's valid keys, the only ones that compute
 and take part in the merge.  Both depend on key positions alone, so a
 sequence's output is bitwise independent of its batchmates, of B and of
 the cache's capacity, and the paged entry equals the fixed one.
+
+The RHT row scale (``fwht_row_scale`` in ``csrc/fwht_rows.cu``) reduces
+each row in one launch; :func:`row_scale_plan` gives the CTAs per row
+(one thread-block cluster) and the threads per CTA.  At M <= 16 a long
+row (K = 9216) is split over a cluster; otherwise one CTA per row is
+faster, as a cluster launch costs about a microsecond more.  The choice
+changes which CTA reads which group, never a result bit (a max is exact
+in any order).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 __all__ = ["GemmPlan", "select", "SPLIT_K", "DECODE_MAX_M", "BN",
-           "AttnPlan", "attn_splits", "attn_split_range", "SPLIT_S"]
+           "AttnPlan", "attn_splits", "attn_split_range", "SPLIT_S",
+           "RowScalePlan", "row_scale_plan"]
 
 #: K split depth: 9 splits at K = 2304, 36 at K = 9216.  A multiple of the
 #: prefill tile's 32-deep slab and at most ``MAX_SPLIT_K`` of the C side.
@@ -96,3 +105,43 @@ def attn_split_range(length: int, window: int, s_len: int) -> range:
     if lo >= hi:
         return range(0)
     return range(lo // SPLIT_S, (hi - 1) // SPLIT_S + 1)
+
+
+class RowScalePlan(NamedTuple):
+    """What the row-scale wrapper passes to its C launcher."""
+
+    ctas: int      # CTAs per row, one cluster (1 to 8)
+    threads: int   # threads per CTA
+
+
+#: the most CTAs a row's cluster takes, and the M up to which a row is
+#: split at all (above it the rows alone fill the card)
+ROW_SCALE_MAX_CTAS = 8
+ROW_SCALE_CLUSTER_MAX_M = 16
+#: threads per CTA: the fewest powers of two in this range that give each
+#: thread at most one 16-lane group (kRowScaleMaxThreads in the C source)
+ROW_SCALE_MIN_THREADS = 128
+ROW_SCALE_MAX_THREADS = 256
+
+
+def row_scale_plan(m: int, k: int) -> RowScalePlan:
+    """The plan for the row scale of x (m, k).  At M <= 16 a row of more
+    than 256 groups is split over the fewest CTAs (a power of two, at most
+    8) that leave each at most 256 groups; threads per CTA are the fewest
+    (a power of two, 128 to 256) that give each thread one group.  These
+    are the fastest plans of ``decode_study.py rowscale-sweep`` at every
+    gemma2-2b K and M in (1, 4, 16, 64, 4544) (``PERF.md`` §6)."""
+    if m < 0 or k <= 0 or k % 16:
+        raise ValueError(f"M={m}, K={k}: K must be a positive multiple "
+                         "of 16")
+    groups = k // 16
+    ctas = 1
+    if m <= ROW_SCALE_CLUSTER_MAX_M:
+        while (ctas < ROW_SCALE_MAX_CTAS
+               and groups > ctas * ROW_SCALE_MAX_THREADS):
+            ctas *= 2
+    per_cta = -(-groups // ctas)
+    threads = ROW_SCALE_MIN_THREADS
+    while threads < min(per_cta, ROW_SCALE_MAX_THREADS):
+        threads *= 2
+    return RowScalePlan(ctas, threads)

@@ -323,21 +323,10 @@ def quantize_kv_rows(kv: torch.Tensor):
 
 
 def _decode_lengths(cache_len, b: int, s: int, device) -> torch.Tensor:
-    """The (B,) int64 write positions of a one-token decode step."""
+    """The (B,) int32 write positions of a one-token decode step."""
     if s != 1:
         raise ValueError("per-sequence cache_len needs s == 1")
-    return torch.as_tensor(cache_len, device=device).to(torch.int64).expand(b)
-
-
-def _kv_rows(seq, pos, block_tables, page_len: int):
-    """Storage index of logical row ``pos`` of sequence ``seq``: ``(seq,
-    pos)`` in a fixed-slot cache (B, S, Hkv, ...), ``(block_tables[seq,
-    pos // page_len], pos % page_len)`` in the paged pool's slabs
-    (P, page_len, Hkv, ...)."""
-    if block_tables is None:
-        return seq, pos
-    return (block_tables[seq, pos // page_len].to(torch.int64),
-            pos % page_len)
+    return torch.as_tensor(cache_len, device=device).to(torch.int32).expand(b)
 
 
 def _attn_packed_cached(q, knew, vnew, ck: qtensor.QTensor,
@@ -352,32 +341,24 @@ def _attn_packed_cached(q, knew, vnew, ck: qtensor.QTensor,
     (``serving.kvpool``).  The two differ only in that row address.
 
     Decode (``cache_len`` (B,) or a scalar, s == 1): quantize the new K/V
-    row, scatter its bytes at each sequence's ``cache_len`` and run the
-    decode-attention kernel (fixed or paged) with ``lengths = cache_len +
-    1``.  Idle paged lanes hold zeroed table rows and scatter into page 0,
-    the pool's trash page, which every read masks.  Prefill (``cache_len``
-    the first row's position, any s): quantize every prompt row, write
-    them, and attend over each sequence's *dequantized* logical rows with
-    the plain ``attention`` — the values later decode steps read back, the
-    same for both layouts.  A one-token prefill chunk is a prefill too, so
-    chunking never changes which attention a row takes."""
+    row straight into each sequence's row ``cache_len`` (one launch) and
+    run the decode-attention kernel (fixed or paged) with ``lengths =
+    cache_len + 1``.  Idle paged lanes hold zeroed table rows and write
+    into page 0, the pool's trash page, which every read masks.  Prefill
+    (``cache_len`` the first row's position, any s): quantize every prompt
+    row into its row, and attend over each sequence's *dequantized*
+    logical rows with the plain ``attention`` — the values later decode
+    steps read back, the same for both layouts.  A one-token prefill chunk
+    is a prefill too, so chunking never changes which attention a row
+    takes."""
     b, s = q.shape[:2]
-    dev = q.device
-    kp, ks = quantize_kv_rows(knew)
-    vp, vs = quantize_kv_rows(vnew)
-    seq = torch.arange(b, device=dev)[:, None]
     if prefill:
         cl = int(cache_len)
-        pos = torch.arange(cl, cl + s, device=dev)[None]
     else:
-        cl = _decode_lengths(cache_len, b, s, dev)
-        pos = cl[:, None]
-    rows = _kv_rows(seq, pos, block_tables, ck.payload.shape[1])
-    for leaf, payload, scales in ((ck, kp, ks), (cv, vp, vs)):
-        leaf.payload[rows] = payload
-        leaf.scales[rows] = scales
+        cl = _decode_lengths(cache_len, b, s, q.device)
+    ops.quantize_kv(knew, vnew, ck, cv, cl, block_tables=block_tables)
     if not prefill:
-        lengths = (cl + 1).to(torch.int32)
+        lengths = cl + 1
         kw = dict(window=window, softcap=cfg.softcap_attn,
                   k_scale32=ck.scale32, v_scale32=cv.scale32)
         slabs = (q[:, 0], ck.payload, ck.scales, cv.payload, cv.scales)

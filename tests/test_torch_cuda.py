@@ -6,7 +6,9 @@ it runs on a machine that has only PyTorch and the CUDA toolkit:
 
   PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 
-Tolerances: quantizer and RHT bitwise; W4A16 and W4A4 1e-3 of max|plain|
+Tolerances: quantizer, RHT, the RHT row scale (any CTAs per row) and the
+KV-cache write (fixed slots and paged pool, decode and prefill, aligned
+and unaligned leaves) bitwise; W4A16 and W4A4 1e-3 of max|plain|
 (the two sum the same exact bf16 products in f32, in different orders);
 each GEMM's rows bitwise independent of M, across its decode (M <= 64)
 and prefill variants, and repeat calls bitwise equal;
@@ -112,6 +114,129 @@ def test_fwht_kernel_bitwise_vs_plain(cuda, mkg):
     got = fwht.fwht_rows(x.to(cuda), signs.to(cuda), group=g)
     assert fwht.launches == before + 1
     assert torch.equal(got.cpu(), fwht.fwht_rows(x, signs, group=g))
+
+
+def _special_rows(m: int, k: int, seed: int) -> torch.Tensor:
+    """``_rows`` and then rows that are zero, hold a NaN, one Inf, two Infs
+    in one 16-lane group, or Inf beside NaN."""
+    special = torch.ones(5, k)
+    special[0] = 0.0
+    special[1, 3] = float("nan")
+    special[2, k - 1] = float("inf")
+    special[3, 16:18] = float("inf")
+    special[4, 0], special[4, 5] = float("inf"), float("nan")
+    return torch.cat([_rows(m, k, seed), special])
+
+
+@pytest.mark.parametrize("mk", [(1, 2304), (4, 2048), (4, 9216), (59, 208),
+                                (64, 2304), (300, 9216)])
+@pytest.mark.parametrize("rht", [True, False], ids=["rht", "plain"])
+def test_fwht_row_scale_kernel_bitwise_vs_plain(cuda, mk, rht):
+    """The row scale equals its plain version bit for bit, NaN, Inf and
+    zero rows included, at every cluster size and thread count (which CTA
+    reads which group never changes a max)."""
+    m, k = mk
+    x = _special_rows(m, k, seed=m + k)
+    signs = _signs(k, seed=k) if rht else None
+    want = fwht.fwht_row_scale(x, signs).view(torch.int32)
+    xd, sd = x.to(cuda), None if signs is None else signs.to(cuda)
+    before = fwht.launches_row_scale
+    got = fwht.fwht_row_scale(xd, sd)
+    assert fwht.launches_row_scale == before + 1
+    assert torch.equal(got.cpu().view(torch.int32), want)
+    for ctas in (1, 2, 4, 8):
+        for threads in (64, 256):
+            got = fwht._row_scale_launch(xd, sd, ctas, threads)
+            assert torch.equal(got.cpu().view(torch.int32), want), (
+                ctas, threads)
+
+
+def _kv_case(seed: int, b: int, s: int, hkv: int, dh: int, rows: tuple):
+    """bf16 K/V rows (B, S, Hkv, dh) and four cache leaves of random wire
+    bytes with ``rows`` = (D0, D1) storage rows."""
+    gen = torch.Generator().manual_seed(seed)
+    kv = [(3 * torch.randn(b, s, hkv, dh, generator=gen)).to(torch.bfloat16)
+          for _ in range(2)]
+    leaves = [torch.randint(0, 256, (*rows, hkv, w), generator=gen,
+                            dtype=torch.uint8)
+              for w in (dh // 2, dh // 16, dh // 2, dh // 16)]
+    return kv, leaves
+
+
+def _unaligned(t: torch.Tensor, cuda) -> torch.Tensor:
+    """A contiguous copy of ``t`` on the card whose base address is odd."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# (name, b, s, hkv, dh, storage rows, positions, block tables): positions
+# a list (a decode step) or an int (a prefill from that row)
+KV_CASES = [
+    ("fixed_decode", 4, 1, 4, 256, (4, 40), [0, 17, 39, 5], None),
+    ("fixed_decode_dh48", 3, 1, 2, 48, (3, 9), [8, 0, 3], None),
+    ("fixed_prefill", 1, 37, 2, 16, (1, 64), 20, None),
+    ("paged_decode_idle", 4, 1, 2, 32, (9, 16), [31, 0, 16, 0],
+     [[4, 2, 7], [0, 0, 0], [1, 8, 0], [0, 0, 0]]),
+    ("paged_prefill", 1, 50, 3, 48, (8, 16), 30, [[3, 5, 2, 6, 0]]),
+]
+
+
+@pytest.mark.parametrize("unaligned", [False, True],
+                         ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("case", KV_CASES, ids=[c[0] for c in KV_CASES])
+def test_quant_kv_kernel_bitwise_vs_plain(cuda, case, unaligned):
+    """The KV write's bytes equal the plain version's (the quantizer, then
+    the indexed writes) in every row but the trash page's, which idle
+    lanes write concurrently; leaves whose base is odd take byte stores."""
+    name, b, s, hkv, dh, rows, pos, tables = case
+    (k, v), leaves = _kv_case(len(name), b, s, hkv, dh, rows)
+    one = torch.ones(())
+    bt = None if tables is None else torch.tensor(tables, dtype=torch.int32)
+    p = torch.tensor(pos, dtype=torch.int32) if isinstance(pos, list) \
+        else pos
+    want = [a.clone() for a in leaves]
+    mixfp4_quant.mixfp4_quant_kv(k, v, *want, one, one, p, block_tables=bt)
+    dev = [_unaligned(a, cuda) if unaligned else a.to(cuda) for a in leaves]
+    kd, vd = (_unaligned(a, cuda) if unaligned else a.to(cuda)
+              for a in (k, v))
+    before = mixfp4_quant.launches_kv
+    mixfp4_quant.mixfp4_quant_kv(
+        kd, vd, *dev, one.to(cuda), one.to(cuda),
+        p.to(cuda) if isinstance(p, torch.Tensor) else p,
+        block_tables=None if bt is None else bt.to(cuda))
+    assert mixfp4_quant.launches_kv == before + 1
+    first = 1 if name.endswith("_idle") else 0
+    for got, w, old in zip(dev, want, leaves):
+        assert torch.equal(got.cpu()[first:], w[first:])
+        assert not torch.equal(w, old)
+
+
+def test_quant_kv_kernel_traps_on_a_row_outside_the_cache(cuda):
+    """A decode position past the cache stops the kernel with a device
+    trap (a skipped row would leave stale bytes); run in a child process,
+    whose CUDA context the trap ends."""
+    import subprocess
+    import sys
+    code = (
+        "import torch\n"
+        "from repro_torch.kernels import mixfp4_quant as Q\n"
+        "d = torch.device('cuda')\n"
+        "k = torch.ones(2, 1, 1, 16, dtype=torch.bfloat16, device=d)\n"
+        "leaves = [torch.zeros(2, 4, 1, w, dtype=torch.uint8, device=d)\n"
+        "          for w in (8, 1, 8, 1)]\n"
+        "one = torch.ones((), device=d)\n"
+        "pos = torch.tensor([0, 4], dtype=torch.int32, device=d)\n"
+        "try:\n"
+        "    Q.mixfp4_quant_kv(k, k, *leaves, one, one, pos)\n"
+        "    torch.cuda.synchronize()\n"
+        "    print('NO TRAP')\n"
+        "except RuntimeError as e:\n"
+        "    print('TRAPPED', e)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert "TRAPPED" in out.stdout, out.stdout + out.stderr
 
 
 W4A4_MKN = [(1, 2304, 2048), (4, 9216, 2304), (70, 208, 272),
@@ -376,18 +501,18 @@ def test_paged_chunked_engine_on_the_card_launches_the_paged_kernel(cuda):
     passes = eng.prefill_dispatches + eng.decode_steps
     assert eng.pool_report()["prefix_hits"] > 0
     assert got == {
-        "mixfp4_quant_rows": 2 * n_l * passes,
+        "mixfp4_quant_rows": 0,
         "mixfp4_gemm_w4a16": 7 * n_l * passes,
         "mixfp4_attn_decode": 0,
         "mixfp4_attn_decode_paged": n_l * eng.decode_steps,
         "mixfp4_gemm_w4a4": 0, "mixfp4_gemm_w4a4_fused": 0,
-        "fwht_rows": 0}
+        "fwht_rows": 0, "mixfp4_quant_kv": n_l * passes,
+        "fwht_row_scale": 0}
 
 
 def test_engine_on_the_card_launches_every_kernel(cuda):
-    """A served decode step costs 7 W4A16 GEMMs, one attention and two
-    quantizer launches per layer; a prefill 7 GEMMs and 2 quantizer
-    launches per layer."""
+    """A served decode step costs 7 W4A16 GEMMs, one attention and one KV
+    write per layer; a prefill 7 GEMMs and one KV write per layer."""
     cfg = configs.smoke_config("gemma2-2b")
     eng = ServeEngine(cfg, build_model(cfg).init(0, device=cuda),
                       batch_size=2, max_len=32, kv_quant="mixfp4",
@@ -404,18 +529,19 @@ def test_engine_on_the_card_launches_every_kernel(cuda):
                for r in reqs)
     n_l, passes = cfg.n_layers, eng.admissions + eng.decode_steps
     assert ops.launch_counts() == {
-        "mixfp4_quant_rows": 2 * n_l * passes,
+        "mixfp4_quant_rows": 0,
         "mixfp4_gemm_w4a16": 7 * n_l * passes,
         "mixfp4_attn_decode": n_l * eng.decode_steps,
         "mixfp4_attn_decode_paged": 0,
         "mixfp4_gemm_w4a4": 0, "mixfp4_gemm_w4a4_fused": 0,
-        "fwht_rows": 0}
+        "fwht_rows": 0, "mixfp4_quant_kv": n_l * passes,
+        "fwht_row_scale": 0}
 
 
 def test_w4a4_rht_engine_on_the_card_launches_its_kernels(cuda):
     """With act_quant="mixfp4", act_rht=True every projection is one fused
-    W4A4 launch plus one fwht_rows launch (its per-row scale); the KV rows
-    still take two quantizer launches per layer and decode one attention
+    W4A4 launch plus one fwht_row_scale launch (its per-row scale); the KV
+    rows take one KV-write launch per layer and decode one attention
     launch per layer."""
     cfg = configs.smoke_config("gemma2-2b")
     eng = ServeEngine(cfg, build_model(cfg).init(0, device=cuda),
@@ -433,10 +559,11 @@ def test_w4a4_rht_engine_on_the_card_launches_its_kernels(cuda):
                for r in reqs)
     n_l, passes = cfg.n_layers, eng.admissions + eng.decode_steps
     assert ops.launch_counts() == {
-        "mixfp4_quant_rows": 2 * n_l * passes,
+        "mixfp4_quant_rows": 0,
         "mixfp4_gemm_w4a16": 0,
         "mixfp4_attn_decode": n_l * eng.decode_steps,
         "mixfp4_attn_decode_paged": 0,
         "mixfp4_gemm_w4a4": 0,
         "mixfp4_gemm_w4a4_fused": 7 * n_l * passes,
-        "fwht_rows": 7 * n_l * passes}
+        "fwht_rows": 0, "mixfp4_quant_kv": n_l * passes,
+        "fwht_row_scale": 7 * n_l * passes}

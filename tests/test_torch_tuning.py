@@ -219,3 +219,40 @@ def test_attn_plan_arguments_and_workspace(bshd):
     assert counters.numel() >= b * h and not counters.any()
     assert mixfp4_attn._plan(b, s, h, dh, dev) == (plan, work_ptr,
                                                    counters_ptr)
+
+
+ROW_SCALE_SRC = HEADER.parent / "fwht_rows.cu"
+
+
+@pytest.mark.parametrize("m", [0, 1, 4, 16, 17, 64, 65, 4544])
+@pytest.mark.parametrize("k", KS)
+def test_row_scale_plan_within_the_kernel_limits(m, k):
+    """CTAs per row a power of two the C entry takes (1 to 8, one cluster),
+    threads a power of two within its block limit, a cluster only at
+    M <= 16, and every thread of a CTA with at most one 16-lane group
+    unless the CTA is at the thread limit."""
+    plan = tuning.row_scale_plan(m, k)
+    limit = _header_constants(ROW_SCALE_SRC)["kRowScaleMaxThreads"]
+    assert plan.ctas in (1, 2, 4, 8) and plan.threads in (128, 256)
+    assert tuning.ROW_SCALE_MAX_THREADS == limit
+    assert plan.ctas == 1 or m <= tuning.ROW_SCALE_CLUSTER_MAX_M
+    per_cta = -(-(k // 16) // plan.ctas)
+    assert per_cta <= plan.threads or plan.threads == limit
+
+
+# the fastest (CTAs per row, threads) of ``decode_study.py rowscale-sweep``
+# on the H100 (PERF.md §6), by (M, K)
+ROW_SCALE_MEASURED = {(4, 2048): (1, 128), (4, 2304): (1, 256),
+                      (4, 9216): (4, 256), (64, 9216): (1, 256),
+                      (4544, 2048): (1, 128), (4544, 9216): (1, 256)}
+
+
+@pytest.mark.parametrize("mk", sorted(ROW_SCALE_MEASURED))
+def test_row_scale_plan_is_the_measured_fastest(mk):
+    assert tuple(tuning.row_scale_plan(*mk)) == ROW_SCALE_MEASURED[mk]
+
+
+@pytest.mark.parametrize("mk", [(4, 0), (4, 40), (-1, 64)])
+def test_row_scale_plan_rejects_bad_shapes(mk):
+    with pytest.raises(ValueError):
+        tuning.row_scale_plan(*mk)
