@@ -40,7 +40,23 @@ Phases (any failed check raises, so the script exits non-zero):
    (``"mixfp4-2pass-rowscale"``) logits must also be bitwise equal;
 4c. at the same width and depth, a prompt prefilled whole into a fixed
    slot and in chunks after a prefix hit into the pool must write the
-   same K/V bytes and give the same next-step logits, bitwise.
+   same K/V bytes and give the same next-step logits, bitwise;
+2m. (with phase 2) the expert W4A16 entry over 64 experts (4 of them
+   zero) at qwen2-moe's (K, N) and C in (1, 5, 64, 65, 380): within 1e-3
+   of max|plain| and bitwise the 2-D entry on every expert's slice, zero
+   experts exact zeros; attention (fixed and paged) and the KV write at
+   Qwen1.5-MoE's heads (B=4, H=Hkv=16, dh=128) against their plain
+   versions;
+3m. phase 3's requests served by qwen2-moe-a2.7b (Qwen1.5-MoE-A2.7B) at
+   full width and depth (24 layers, 60 experts stored as 64, a shared
+   expert; every layer drawn and packed on its own) in fixed slots:
+   exact launch counts (per pass and layer 7 ``mixfp4_gemm_w4a16``, 3
+   ``mixfp4_gemm_w4a16_experts``, one KV write; one attention per decode
+   pass), a decode step run twice on the same state bitwise equal, five
+   traced decode steps;
+3m-paged. the same through the pool as a plain page allocator (MoE has no
+   prefix caching): the streams must equal phase 3m's, with no prefix hit;
+4m. qwen2-moe at full width cut to 2 layers, card vs CPU logits.
 
 Each kernel's launch count comes from the path run that drives it, with
 the counts set to 0 just before that run.  The line before the last is a
@@ -1087,6 +1103,197 @@ def check_fwht(dev, flush) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 2m: the expert W4A16 entry and Qwen1.5-MoE's heads
+# ---------------------------------------------------------------------------
+# qwen2-moe: 64 stored experts (60 + 4 zero); up/gate (2048, 1408), down
+# (1408, 2048); one decode layer's three expert projections
+MOE_EXPERTS, MOE_REAL = 64, 60
+MOE_LAYER = [(2048, 1408), (2048, 1408), (1408, 2048)]
+# rows per expert: 1; 5 (B = 4 decode: cap 4 + the discard row); the
+# decode variant's last M; the prefill tile's first; a 4544-token prefill
+# (cap 379 + 1)
+MOE_CS = (1, 5, 64, 65, 380)
+
+
+def check_gemm_experts(dev, flush) -> dict:
+    """The expert entry over 64 experts (the last 4 zero): within 1e-3 of
+    max|plain| of its plain version, bitwise the 2-D entry on each
+    expert's slice, exact zeros for the zero experts, at every C of
+    ``MOE_CS``; then one decode layer's three expert launches at C = 5
+    timed against their plain version and ``torch.bmm`` on the pre-decoded
+    bf16 experts, and the prefill at C = 380."""
+    from repro_torch.core import qtensor
+    from repro_torch.kernels import mixfp4_gemm as G
+    from repro_torch.models.base import pack_projections
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    stacks = {}
+    for k, n in set(MOE_LAYER):
+        w = torch.randn(MOE_EXPERTS, k, n, device=dev, generator=gen) \
+            / math.sqrt(k)
+        w[MOE_REAL:] = 0.0
+        stacks[(k, n)] = pack_projections({"w_up": w})[0]["w_up"]
+        del w
+    worst = 0.0
+    for (k, n), qw in stacks.items():
+        for c in MOE_CS:
+            x = torch.randn(MOE_EXPERTS, c, k, device=dev,
+                            generator=gen).to(torch.bfloat16)
+            y = qtensor.qmm_experts(x, qw)
+            yp = G.gemm_w4a16_experts_plain(x, qw.payload, qw.scales,
+                                            qw.scale32, n)
+            torch.cuda.synchronize()
+            err = float((y - yp).abs().max() / yp.abs().max())
+            worst = max(worst, err)
+            if not err <= 1e-3:
+                raise AssertionError(f"experts K={k} N={n} C={c}: "
+                                     f"normalised error {err}")
+            for e in range(MOE_EXPERTS):
+                two_d = G.mixfp4_gemm_w4a16(x[e], qw.payload[e],
+                                            qw.scales[e], qw.scale32[e])
+                if not torch.equal(y[e], two_d):
+                    raise AssertionError(f"experts K={k} N={n} C={c}: "
+                                         f"expert {e} is not bitwise the "
+                                         "2-D launch")
+            if y[MOE_REAL:].any():
+                raise AssertionError(f"experts K={k} N={n} C={c}: a zero "
+                                     "expert gave a non-zero output")
+    log(f"[w4a16-experts] 64 experts (4 zero) x (K, N) in "
+        f"{sorted(stacks)} x C in {MOE_CS}: max error normalised by "
+        f"max|plain| {worst:.3e} (tolerance 1e-3); every expert bitwise the "
+        f"2-D launch on its slice; zero experts exact zeros")
+
+    c = 5
+    xs = {k: torch.randn(MOE_EXPERTS, c, k, device=dev,
+                         generator=gen).to(torch.bfloat16)
+          for k in (2048, 1408)}
+    dense = {kn: torch.stack([G.decode_weight_bf16(qw.payload[e],
+                                                   qw.scales[e])
+                              for e in range(MOE_EXPERTS)])
+             for kn, qw in stacks.items()}
+
+    def run(fn):
+        return lambda: [fn(xs[k], (k, n)) for k, n in MOE_LAYER]
+
+    kern = run(lambda x, kn: qtensor.qmm_experts(x, stacks[kn]))
+    plain = run(lambda x, kn: G.gemm_w4a16_experts_plain(
+        x, stacks[kn].payload, stacks[kn].scales, stacks[kn].scale32,
+        kn[1]))
+    lib = run(lambda x, kn: torch.bmm(x, dense[kn]))
+    ms = bench(kern, 20, flush)
+    dev_ms = bench(kern, 20, flush, keep_ahead=True)
+    plain_ms = bench(plain, 3, flush)
+    lib_ms = bench(lib, 20, flush)
+    lib_dev_ms = bench(lib, 20, flush, keep_ahead=True)
+    n_bytes = sum(MOE_EXPERTS * (k * n / 2 + k * n / 256 + 4 + c * k * 2
+                                 + c * n * 4) for k, n in MOE_LAYER)
+    n_ops = sum(2 * MOE_EXPERTS * c * k * n for k, n in MOE_LAYER)
+    b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+    cp = MOE_CS[-1]
+    for (k, n), qw in sorted(stacks.items()):
+        x = torch.randn(MOE_EXPERTS, cp, k, device=dev,
+                        generator=gen).to(torch.bfloat16)
+        t = bench(lambda: qtensor.qmm_experts(x, qw), 5, flush)
+        flops = 2 * MOE_EXPERTS * cp * k * n
+        log(f"[w4a16-experts] prefill C={cp} K={k} N={n}: {t:.3f} ms "
+            f"({flops / t / 1e9:.1f} TFLOP/s)")
+    log(f"[w4a16-experts] one decode layer's 3 expert launches (64 experts, "
+        f"C=5): kernel {ms:.4f} ms (card alone {dev_ms:.4f}), plain "
+        f"{plain_ms:.4f} ms, torch.bmm on the decoded bf16 experts "
+        f"{lib_ms:.4f} ms (card alone {lib_dev_ms:.4f}), bound {b_ms:.4f} "
+        f"ms ({b_by}, {n_bytes / 1e6:.1f} MB)")
+    return {"name": "mixfp4_gemm_w4a16_experts", "route": "cuda",
+            "source": "src/repro_torch/csrc/mixfp4_gemm_w4a16.cu",
+            "replaces": "src/repro/kernels/mixfp4_gemm.py:300",
+            "max_abs_err": worst, "tolerance": "1e-3 of max|plain|; "
+            "bitwise the 2-D launch per expert",
+            "shape": "3 expert projections of one qwen2-moe layer, 64 "
+                     "experts, C=5",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms, "device_ms": dev_ms,
+            "library_device_ms": lib_dev_ms}
+
+
+def check_moe_heads(dev, flush):
+    """Attention, fixed and paged, and the KV write at Qwen1.5-MoE's decode
+    shape (B=4, H=Hkv=16, dh=128, g=1) against their plain versions: the
+    paged kernel bitwise the fixed one, both within 1e-4 of the plain
+    version, the KV bytes bitwise; the non-empty CTAs of the attention
+    grid at phase 3m's decode lengths."""
+    from repro_torch.kernels import mixfp4_attn as A
+    from repro_torch.kernels import mixfp4_quant as Q
+    from repro_torch.kernels import tuning
+    from repro_torch.models.base import quantize_kv_rows
+
+    b, s, hkv, h, dh = 4, 8192, 16, 16, 128
+    rng = np.random.RandomState(12)
+    q = torch.tensor(rng.randn(b, h, dh), dtype=torch.float32, device=dev)
+    fixed = []
+    for _ in range(2):
+        fixed += list(quantize_kv_rows(torch.tensor(
+            rng.randn(b, s, hkv, dh), dtype=torch.float32, device=dev)))
+    mp = s // PAGE_LEN
+    bt = torch.tensor(1 + rng.permutation(b * mp).reshape(b, mp),
+                      dtype=torch.int32, device=dev)
+    slabs = []
+    for a in fixed:
+        slab = torch.zeros((1 + b * mp, PAGE_LEN, *a.shape[2:]),
+                           dtype=a.dtype, device=dev)
+        slab[bt.reshape(-1).long()] = a.reshape(b * mp, PAGE_LEN,
+                                                *a.shape[2:])
+        slabs.append(slab)
+    one = torch.ones((), device=dev)
+    worst = 0.0
+    for lens in (SERVED_LENGTHS, (s, 1, 2048, 300)):
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        kw = {"window": 0, "k_scale32": one, "v_scale32": one}
+        o = A.mixfp4_attn_decode(q, *fixed, lengths, **kw)
+        op = A.mixfp4_attn_decode_paged(q, *slabs, bt, lengths, **kw)
+        plain = A.attn_decode_plain(q, *fixed, lengths, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(o, op):
+            raise AssertionError(f"dh=128 attention {lens}: paged is not "
+                                 "bitwise the fixed kernel")
+        err = float((o - plain).abs().max())
+        worst = max(worst, err)
+        if not err <= 1e-4:
+            raise AssertionError(f"dh=128 attention {lens}: error {err}")
+    ctas = hkv * sum(len(tuning.attn_split_range(n, 0, s))
+                     for n in SERVED_LENGTHS)
+    lengths_served = torch.tensor(SERVED_LENGTHS, dtype=torch.int32,
+                                  device=dev)
+    ms = bench(lambda: A.mixfp4_attn_decode(q, *fixed, lengths_served,
+                                            **kw), 20, flush)
+    b_ms, b_by = attn_bound(attn_rows(lengths_served, s, 0), b, h, hkv, dh)
+    log(f"[attn-moe] B=4 H=Hkv=16 (g=1) dh=128, S=8192, lengths "
+        f"{SERVED_LENGTHS} and (8192, 1, 2048, 300), global: paged bitwise "
+        f"the fixed kernel, max abs error vs plain {worst:.3e} (tolerance "
+        f"1e-4); {ctas} non-empty CTAs at the served lengths (132 SMs); "
+        f"fixed kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    if ctas < 132:
+        log(f"[attn-moe] fewer non-empty CTAs ({ctas}) than SMs (132)")
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    lens = torch.tensor(SERVED_LENGTHS, dtype=torch.int32, device=dev)
+    for name, rows, tables in (("fixed", (b, s), None),
+                               ("paged", (1 + b * mp, PAGE_LEN), bt)):
+        k, v = ((3 * torch.randn(b, 1, hkv, dh, device=dev, generator=gen)
+                 ).to(torch.bfloat16) for _ in range(2))
+        leaves = _kv_leaves(rows, hkv, dh, dev, gen)
+        want = [a.clone() for a in leaves]
+        Q.quant_kv_plain(k, v, *want, one, one, lens, tables)
+        Q.mixfp4_quant_kv(k, v, *leaves, one, one, lens, block_tables=tables)
+        torch.cuda.synchronize()
+        bad = sum(int((g != w).sum()) for g, w in zip(leaves, want))
+        if bad:
+            raise AssertionError(f"dh=128 KV write {name}: {bad} bytes "
+                                 "differ")
+    log("[quant-kv-moe] B=4 x Hkv=16 x dh=128 decode rows into fixed slots "
+        "and a permuted pool: bytes bitwise equal to the quantizer + "
+        "indexed writes")
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the served path at full width
 # ---------------------------------------------------------------------------
 def shared_prefix_requests(vocab: int, seed: int):
@@ -1115,27 +1322,34 @@ def shared_prefix_requests(vocab: int, seed: int):
 LONG_UID = 3                       # the 4500-token request
 
 
-def serve_path(dev, seed: int, tag: str, params=None, **kw) -> dict:
-    """Serve phase 3's six greedy requests at full width and depth with the
-    engine options ``kw`` (the fixed-slot W4A16 path without them), from
-    seeded random weights or from ``params`` (packed leaves pass through);
-    check every launch counter against what the path implies; trace a
-    decode window.  Returns the launch counts, the streams, the engine's
-    packed parameters and the step times."""
+def serve_path(dev, seed: int, tag: str, params=None,
+               arch: str = "gemma2-2b", **kw) -> dict:
+    """Serve phase 3's six greedy requests at full width and depth of
+    ``arch`` with the engine options ``kw`` (the fixed-slot W4A16 path
+    without them), from seeded random weights or from ``params`` (packed
+    leaves pass through); check every launch counter against what the
+    path implies; on an MoE model run one decode step twice on the same
+    state; trace a decode window.  Returns the launch counts, the streams,
+    the engine's packed parameters and the step times.  An MoE model is
+    drawn and packed one layer at a time (its f32 experts would not fit
+    on the card)."""
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.serving.engine import ServeEngine
 
-    cfg = configs.config("gemma2-2b")
+    cfg = configs.config(arch)
+    moe = cfg.family == "moe"
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     if params is None:
-        params = build_model(cfg).init(seed, device=dev)
+        params = build_model(cfg).init(seed, device=dev,
+                                       pack="mixfp4" if moe else None)
     engine = ServeEngine(cfg, params, batch_size=4, max_len=8192,
                          kv_quant="mixfp4", device=dev, **kw)
     del params
     torch.cuda.synchronize()
-    log(f"{tag} gemma2-2b, {cfg.n_layers} layers at full width, act_quant="
+    log(f"{tag} {cfg.name}, {cfg.n_layers} layers at full width, act_quant="
         f"{engine.act_quant}, act_rht={engine.act_rht}, kv_pool="
         f"{kw.get('kv_pool')}, prefill_chunk={engine.prefill_chunk}: init + "
         f"pack {time.perf_counter() - t0:.1f} s; packed projection bytes "
@@ -1170,7 +1384,10 @@ def serve_path(dev, seed: int, tag: str, params=None, **kw) -> dict:
                          cfg.n_layers)
     per_pass = {name: 0 for name in counts}      # launches per model pass
     per_pass["mixfp4_quant_kv"] = n_l            # the new K and V rows
-    if engine.act_quant == "bf16":
+    if moe:                  # attention 4 + shared expert 3; experts 3
+        per_pass["mixfp4_gemm_w4a16"] = 7 * n_l
+        per_pass["mixfp4_gemm_w4a16_experts"] = 3 * n_l
+    elif engine.act_quant == "bf16":
         per_pass["mixfp4_gemm_w4a16"] = 7 * n_l
     else:                                        # "mixfp4" + RHT
         per_pass["mixfp4_gemm_w4a4_fused"] = 7 * n_l
@@ -1201,20 +1418,68 @@ def serve_path(dev, seed: int, tag: str, params=None, **kw) -> dict:
     log(f"{tag} prompts {[len(r.prompt) for r in reqs]}, 32 new tokens "
         f"each: {n_tok} tokens in {wall:.2f} s ({n_tok / wall:.1f} tok/s); "
         f"{prefill}; {n_dec} decode steps (median "
-        f"{statistics.median(step_ms):.2f} ms); every logit row finite")
+        f"{statistics.median(step_ms):.2f} ms); every logit row finite; "
+        f"peak device memory {torch.cuda.max_memory_allocated()} B")
     log(f"{tag} launches {counts}; per prefill pass "
         f"{ {k: v for k, v in per_pass.items() if v} }, per decode pass the "
         f"same plus {n_l} {attn} launches")
     if engine.kv_pool is not None:
         rep = engine.pool_report()
         log(f"{tag} pool {rep}; peak concurrency {engine.max_concurrent}")
-        if not (rep["prefix_hits"] > 0 and rep["cow_copies"] > 0
+        if engine.kv_pool.enable_prefix and not (
+                rep["prefix_hits"] > 0 and rep["cow_copies"] > 0
                 and rep["pages_active"] == 0):
             raise AssertionError(f"pool report {rep}: expected prefix hits, "
                                  "COW copies and no active page at the end")
+        if not engine.kv_pool.enable_prefix and (
+                rep["prefix_hits"] or rep["cow_copies"]
+                or rep["pages_active"]):
+            raise AssertionError(f"pool report {rep}: a plain page "
+                                 "allocator takes no prefix hit and ends "
+                                 "with no active page")
+    if moe:
+        step_twice(engine, seed, tag)
     profile_decode(engine, seed, tag)
     return {"counts": counts, "params": engine.params,
             "streams": {r.uid: list(r.generated) for r in reqs}}
+
+
+def step_twice(engine, seed: int, tag: str):
+    """Fill every slot with a 300-token prompt, emit the first tokens, then
+    run the same decode step twice on copies of one cache state: the
+    logits and the new K/V bytes must be bitwise equal (routing, dispatch
+    and the combine use no atomics)."""
+    from repro_torch.core import qtensor
+    from repro_torch.serving.engine import Request
+
+    rng = np.random.RandomState(seed + 5)
+    for i in range(engine.batch_size):
+        if not engine.add_request(Request(
+                uid=200 + i, prompt=rng.randint(
+                    0, engine.cfg.vocab, 300).astype(np.int32),
+                max_new_tokens=4)):
+            raise AssertionError("step_twice requests were not admitted")
+    engine.step()
+    toks = torch.tensor([r.generated[-1] for r in engine.slots],
+                        device=engine.device)
+    lens = torch.as_tensor(engine.lengths, device=engine.device)
+    out = []
+    for _ in range(2):
+        cache = {k: (v.replace(payload=v.payload.clone(),
+                               scales=v.scales.clone())
+                     if isinstance(v, qtensor.QTensor) else v.clone())
+                 for k, v in engine.cache.items()}
+        logits, cache = engine.model.decode_step(engine.params, toks, cache,
+                                                 lens, act=engine.act)
+        out.append([logits, cache["k"].payload, cache["v"].payload])
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*out)):
+        raise AssertionError(f"{tag} the same decode step twice: logits or "
+                             "K/V bytes differ")
+    while engine.has_work():
+        engine.step()
+    log(f"{tag} one decode step (B=4, 300-token prompts) run twice on the "
+        f"same state: logits and K/V bytes bitwise equal")
 
 
 # the operators of a decode step whose PyTorch kernels include a memset
@@ -1260,17 +1525,19 @@ def profile_decode(engine, seed: int, tag: str):
     gemm = {key: c for key, c in rows.items()
             if "w4a16_" in key or "w4a4_" in key}
     n_gemm = sum(gemm.values())
-    want = 7 * engine.cfg.n_layers * steps
+    per_layer = 7 + (3 if engine.cfg.n_experts else 0)
+    want = per_layer * engine.cfg.n_layers * steps
     memsets = collections.Counter(
         ev.name for ev in prof.events() for kern in ev.kernels
         if "memset" in kern.name.lower())
     trace_rows = {k: sum(c for key, c in rows.items() if k in key)
-                  for k in ("w4a16_", "w4a4_", "attn_decode_kernel",
+                  for k in ("w4a16_", "true>", "w4a4_", "attn_decode_kernel",
                             "quant_rows_kernel", "quant_kv_kernel",
                             "fwht_rows_kernel", "fwht_row_scale_kernel")}
     launches = sum(rows.values()) / steps
     log(f"[profile] {tag} launches in the window: wrappers {wrapped}; "
-        f"trace rows {trace_rows}; device launches per decode step "
+        f"trace rows {trace_rows} ('true>': the expert GEMM's "
+        f"instantiations); device launches per decode step "
         f"{launches:.1f} (every kernel, memset and copy row)")
     if n_gemm != want or not all("_decode_kernel" in key for key in gemm):
         raise AssertionError(f"{tag} traced GEMM rows {gemm} ({n_gemm}, "
@@ -1286,6 +1553,12 @@ def profile_decode(engine, seed: int, tag: str):
         f"({100 * busy / win_ms:.1f} %); {n_gemm // steps} GEMM launches "
         f"per step, all decode-variant; memsets over the {steps} steps by "
         f"launching operator {dict(memsets)}")
+    if engine.cfg.n_experts:
+        experts = sum(ms for name, (ms, _) in by_kernel.items()
+                      if "w4a16" in name and "true>" in name)
+        log(f"[profile] {tag} expert GEMM device time {experts:.4f} "
+            f"ms/step ({3 * engine.cfg.n_layers} launches), the rest "
+            f"{busy / steps - experts:.4f} ms/step")
     for name, (ms, calls) in sorted(by_kernel.items(),
                                     key=lambda kv: -kv[1][0])[:12]:
         log(f"[profile] {ms:9.4f} ms/step {calls:5d} launches/step  "
@@ -1332,8 +1605,9 @@ def decode_step_ab(dev, params, seed: int, rounds: int = 8):
 # ---------------------------------------------------------------------------
 # phase 4: card vs CPU on the same packed bytes
 # ---------------------------------------------------------------------------
-def card_vs_cpu(dev, seed: int, w4a4: bool = False) -> dict:
-    """gemma2-2b at full width cut to 2 layers, on the card and on the CPU
+def card_vs_cpu(dev, seed: int, w4a4: bool = False,
+                arch: str = "gemma2-2b") -> dict:
+    """``arch`` at full width cut to 2 layers, on the card and on the CPU
     from the same packed bytes: W4A16, or with ``w4a4`` the fused W4A4 +
     RHT path, whose card logits must also equal the two-pass spelling's
     bitwise.  Returns the launch counts of the two-pass card run (the
@@ -1344,10 +1618,11 @@ def card_vs_cpu(dev, seed: int, w4a4: bool = False) -> dict:
     from repro_torch.models import build_model
     from repro_torch.models.base import ActQuant, pack_projections
 
-    cfg = configs.config("gemma2-2b").replace(n_layers=2)
+    cfg = configs.config(arch).replace(n_layers=2)
     model = build_model(cfg)
     packed, _, _ = pack_projections(model.init(seed, device=dev),
                                     act_rht=w4a4)
+    moe = cfg.family == "moe"
     act = ActQuant("mixfp4", rht=True) if w4a4 else ActQuant()
 
     def to_cpu(tree):
@@ -1377,12 +1652,12 @@ def card_vs_cpu(dev, seed: int, w4a4: bool = False) -> dict:
     ops.reset_launch_counts()
     gpu = run(packed, dev, act)
     used = {k: v for k, v in ops.launch_counts().items() if v}
-    if w4a4 and set(used) != {"mixfp4_quant_kv", "mixfp4_attn_decode",
-                              "mixfp4_gemm_w4a4_fused",
-                              "fwht_row_scale"} or \
-            not w4a4 and set(used) != {"mixfp4_quant_kv",
-                                       "mixfp4_attn_decode",
-                                       "mixfp4_gemm_w4a16"}:
+    if w4a4:
+        path = {"mixfp4_gemm_w4a4_fused", "fwht_row_scale"}
+    else:
+        path = {"mixfp4_gemm_w4a16"} | (
+            {"mixfp4_gemm_w4a16_experts"} if moe else set())
+    if set(used) != {"mixfp4_quant_kv", "mixfp4_attn_decode"} | path:
         raise AssertionError(f"the card run took other kernels: {used}")
     cpu = run(packed_cpu, torch.device("cpu"), act)
     if not torch.isfinite(gpu).all():
@@ -1391,8 +1666,9 @@ def card_vs_cpu(dev, seed: int, w4a4: bool = False) -> dict:
     agree = int((gpu.argmax(-1) == cpu.argmax(-1)).sum())
     if not err <= 2e-2:
         raise AssertionError(f"card vs CPU logits: normalised error {err}")
-    tag = "[card-vs-cpu-w4a4]" if w4a4 else "[card-vs-cpu]"
-    log(f"{tag} gemma2-2b width, 2 layers, act_quant={act.mode}, "
+    tag = ("[card-vs-cpu-w4a4]" if w4a4 else
+           "[card-vs-cpu-moe]" if moe else "[card-vs-cpu]")
+    log(f"{tag} {cfg.name} width, 2 layers, act_quant={act.mode}, "
         f"act_rht={act.rht}: prefill of 64 tokens + 4 teacher-forced decode "
         f"steps; logits normalised by max|CPU| agree to {err:.3e} "
         f"(tolerance 2e-2); argmax agrees on {agree}/5 rows")
@@ -1403,6 +1679,7 @@ def card_vs_cpu(dev, seed: int, w4a4: bool = False) -> dict:
     counts = ops.launch_counts()
     n_l, passes = cfg.n_layers, 1 + len(forced)
     want = {"mixfp4_quant_rows": 7 * n_l * passes, "mixfp4_gemm_w4a16": 0,
+            "mixfp4_gemm_w4a16_experts": 0,
             "mixfp4_attn_decode": n_l * len(forced),
             "mixfp4_attn_decode_paged": 0,
             "mixfp4_gemm_w4a4": 7 * n_l * passes,
@@ -1533,7 +1810,9 @@ def main():
     kernels = [check_quant(dev, flush), check_quant_kv(dev, flush),
                check_gemm(dev, flush),
                check_attn(dev, flush), *check_w4a4(dev, flush),
-               *check_fwht(dev, flush), check_attn_paged(dev, flush)]
+               *check_fwht(dev, flush), check_attn_paged(dev, flush),
+               check_gemm_experts(dev, flush)]
+    check_moe_heads(dev, flush)
     del flush
     check_m_invariance(dev)
     # each kernel's launches: from the path run that drives it
@@ -1554,6 +1833,20 @@ def main():
     card_vs_cpu(dev, args.seed)
     paths["w4a4-2pass-rowscale"] = card_vs_cpu(dev, args.seed, w4a4=True)
     chunked_prefix_vs_whole(dev, args.seed)
+    # the MoE family: Qwen1.5-MoE-A2.7B at full width and depth
+    moe = "qwen2-moe-a2.7b"
+    moe_fixed = serve_path(dev, args.seed, "[serve-moe]", arch=moe)
+    moe_paged = serve_path(dev, args.seed, "[serve-moe-paged]", arch=moe,
+                           params=moe_fixed.pop("params"), kv_pool=2049,
+                           kv_page_len=PAGE_LEN)
+    del moe_paged["params"]
+    if moe_paged["streams"] != moe_fixed["streams"]:
+        raise AssertionError("MoE pool streams differ from the fixed-slot "
+                             "ones")
+    log("[serve-moe-paged] all six streams equal phase 3m's token for "
+        "token")
+    paths["moe-w4a16"] = moe_fixed["counts"]
+    card_vs_cpu(dev, args.seed, arch=moe)
     for entry in kernels:
         entry["path"], entry["launches"] = next(
             (name, c[entry["name"]]) for name, c in paths.items()

@@ -1,4 +1,4 @@
-"""Architecture registry of the port (dense family).  Each module exposes
+"""Architecture registry of the port (dense and MoE families).  Each module exposes
 ``config()`` (the published configuration) and ``smoke_config()`` (a
 reduced same-family configuration for CPU tests), as in
 ``repro/configs``."""
@@ -6,7 +6,8 @@ from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["gemma2_2b", "mixfp4_476m"]
+ARCH_IDS = ["gemma2_2b", "mixfp4_476m", "qwen2_moe_a2_7b",
+            "qwen3_moe_30b_a3b"]
 
 _ALIAS = {i.replace("_", "-"): i for i in ARCH_IDS}
 
@@ -17,7 +18,7 @@ def get_arch(name: str):
     if mod not in ARCH_IDS:
         raise ValueError(f"arch {name!r} is not ported (ported: "
                          f"{sorted(_ALIAS)}); other families are ROADMAP "
-                         "§1 item 8")
+                         "§1 item 5")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 
 

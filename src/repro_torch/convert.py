@@ -2,7 +2,9 @@
 
 The JAX dense value tree (``TransformerLM.init`` values) stacks every
 per-layer leaf with a leading L axis under ``"layers"``; the port keeps one
-dict per layer.  Packed trees (``ServeEngine.params``) hold QTensors whose
+dict per layer.  An MoE layer's expert stacks come as (L, E, K, N) leaves
+(packed: children (L, E, ...)) and carry over as per-layer (E, ...) stacks;
+its router stays f32.  Packed trees (``ServeEngine.params``) hold QTensors whose
 children carry that L axis, possibly on storage padded past the logical
 shape.  Callers hand in ``np.asarray`` leaves; a packed leaf is any object
 with ``payload``/``scales``/``scale32``/``shape``/``method`` and a

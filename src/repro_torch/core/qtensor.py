@@ -31,7 +31,7 @@ from repro_torch.core import formats, pack as pack_lib, quantize as Q, scaling
 
 __all__ = ["BlockLayout1D", "BlockLayout2D", "QuantSpec", "QTensor",
            "PACKABLE_METHODS", "quantize", "quantize_rows",
-           "from_packed_rows", "stack", "qmm"]
+           "from_packed_rows", "stack", "qmm", "qmm_experts"]
 
 _G = 16
 PACKABLE_METHODS = ("nvfp4", "mixfp4")
@@ -339,3 +339,28 @@ def qmm(x: Union[torch.Tensor, QTensor], w: QTensor, *,
                             per_row=per_row_act, rht_signs=act_rht_signs,
                             n_out=n_logical)
     return y.reshape(*lead, n_logical)
+
+
+def qmm_experts(x: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """y[e] = x[e] @ w[e], f32 out, for a stack of expert weights: x
+    (E, C, K) dense, ``w`` a 2-D-tiled QTensor whose children lead with E
+    (``pack_projections`` of an (E, K, N) stack), each expert with its own
+    ``scale32``.  Every expert runs in one W4A16 launch
+    (``kernels.ops.gemm_w4a16_experts``), each expert's rows bitwise what
+    :func:`qmm` gives on that expert's slice.  x is zero-padded onto the
+    stored K grid when that grid is wider than K."""
+    from repro_torch.kernels import ops  # deferred: kernels import core
+
+    if not (isinstance(w, QTensor) and isinstance(w.layout, BlockLayout2D)
+            and w.payload.ndim == 3):
+        raise ValueError("qmm_experts expects a 2-D-tiled QTensor stack "
+                         "with children (E, ...)")
+    k_logical, n_logical = w.shape
+    e, kp = w.payload.shape[0], 2 * w.payload.shape[1]
+    if x.ndim != 3 or x.shape[0] != e or x.shape[-1] != k_logical:
+        raise ValueError(f"qmm_experts: x {tuple(x.shape)} vs a stack of "
+                         f"{e} experts with K={k_logical}")
+    if kp != k_logical:
+        x = F.pad(x, (0, kp - k_logical))
+    return ops.gemm_w4a16_experts(x, w.payload, w.scales, w.scale32,
+                                  n_out=n_logical)

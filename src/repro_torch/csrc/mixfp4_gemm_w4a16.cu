@@ -1,9 +1,13 @@
 // W4A16 GEMM over a packed MixFP4 weight for sm_90a:
-//   y (M, N) f32 = bf16(x) (M, K) @ decode(W) (K, N) * scale32.
+//   y (M, N) f32 = bf16(x) (M, K) @ decode(W) (K, N) * scale32,
+// and over a stack of MoE experts in one launch:
+//   y[e] (C, N) = bf16(x[e]) (C, K) @ decode(W[e]) * scale32[e], every e.
 //
 // Replaces: src/repro/kernels/mixfp4_gemm.py :: mixfp4_gemm_w4a16
 //           (_stream_gemm_body in mode "w4a16", _expand_weight_tile,
-//           _decode_nibbles, _decode_scales).
+//           _decode_nibbles, _decode_scales); the expert entry replaces
+//           the reference's lax.map of that kernel over the stack
+//           (src/repro/models/moe.py :: _expert_ffn).
 //
 // Bound: bytes at decode (M = batch, a few rows: every packed weight byte
 // is read once for ~2*M flops per value); operations only at prefill
@@ -20,6 +24,15 @@
 // per-tensor scale multiplies the f32 sum in the epilogue.  The packed
 // weight is never expanded in device memory.  wgmma and TMA at prefill M
 // are later work.
+//
+// Experts: the same two kernels with the expert as the grid's z axis
+// (EXPERTS = true).  Each CTA moves its operand pointers to its expert's
+// slice (contiguous (E, ...) stacks) and its own slice of the decode
+// workspace and counters, then runs the 2-D code unchanged, so every
+// expert's rows are bitwise the 2-D entry's on that expert and stay
+// independent of C.  At decode C (a few rows per expert) the launch reads
+// every stored expert's weight bytes once: bytes bound, like a 2-D
+// decode GEMM E times as large.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -30,10 +43,23 @@ namespace {
 
 using namespace mixfp4;
 
+// the operands of expert e = blockIdx.z of contiguous (E, ...) stacks
+#define MIXFP4_EXPERT_SLICES()                  \
+  do {                                          \
+    const size_t e = blockIdx.z;                \
+    x += e * m * k;                             \
+    wp += e * (k / 2) * nw;                     \
+    ws += e * (k / 16) * (nw / 16);             \
+    s32 += e;                                   \
+    y += e * m * n;                             \
+  } while (0)
+
+template <bool EXPERTS>
 __global__ void __launch_bounds__(128) w4a16_kernel(
     const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ wp,
     const uint8_t* __restrict__ ws, const float* __restrict__ s32,
     float* __restrict__ y, int m, int k, int nw, int n, int split_k) {
+  if constexpr (EXPERTS) MIXFP4_EXPERT_SLICES();
   __shared__ __align__(16) __nv_bfloat16 As[BM][LDA];
   __shared__ __align__(16) __nv_bfloat16 Bs[BN][LDB];
   __shared__ SplitSum sum;
@@ -69,13 +95,18 @@ __global__ void __launch_bounds__(128) w4a16_kernel(
   store_tile(y, part, s32, 0, m0, n0, m, n, warp, lane);
 }
 
-template <int MT>
+template <int MT, bool EXPERTS>
 __global__ void __launch_bounds__(DTHREADS) w4a16_decode_kernel(
     const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ wp,
     const uint8_t* __restrict__ ws, const float* __restrict__ s32,
     float* __restrict__ y, float* __restrict__ work,
     int* __restrict__ counters, int m, int k, int nw, int n, int np,
     int split_k) {
+  if constexpr (EXPERTS) {
+    MIXFP4_EXPERT_SLICES();
+    work += static_cast<size_t>(blockIdx.z) * gridDim.y * m * np;
+    counters += blockIdx.z * gridDim.x;
+  }
   extern __shared__ __align__(16) uint8_t smem[];
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * DBN, split = blockIdx.y;
@@ -102,6 +133,36 @@ __global__ void __launch_bounds__(DTHREADS) w4a16_decode_kernel(
                gridDim.y, tid);
 }
 
+template <bool EXPERTS>
+int launch(const void* x, const uint8_t* payload, const uint8_t* scales,
+           const float* s32, float* y, int experts, int m, int k, int nw,
+           int n, int split_k, int decode, float* work, int* counters,
+           void* stream) {
+  if (experts == 0 || m == 0 || n == 0) return 0;
+  if (const int err = check_plan(m, split_k, decode)) return err;
+  if (experts < 0 || experts > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  if (decode) {
+    const int tiles = (n + DBN - 1) / DBN;
+    const dim3 grid(tiles, (k + split_k - 1) / split_k, experts);
+    const size_t smem = decode_smem_bytes(m, split_k);
+    const int mt = decode_mtiles(m);
+    auto kernel = mt == 1 ? w4a16_decode_kernel<1, EXPERTS>
+                          : (mt == 2 ? w4a16_decode_kernel<2, EXPERTS>
+                                     : w4a16_decode_kernel<4, EXPERTS>);
+    kernel<<<grid, DTHREADS, smem, st>>>(xb, payload, scales, s32, y, work,
+                                         counters, m, k, nw, n, tiles * DBN,
+                                         split_k);
+  } else {
+    const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, experts);
+    w4a16_kernel<EXPERTS><<<grid, 128, 0, st>>>(xb, payload, scales, s32, y,
+                                                m, k, nw, n, split_k);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x (M, K) bf16 contiguous, 16-byte aligned, K % 16 == 0; payload (K/2,
@@ -116,25 +177,21 @@ extern "C" int mixfp4_gemm_w4a16(const void* x, const uint8_t* payload,
                                  float* y, int m, int k, int nw, int n,
                                  int split_k, int decode, float* work,
                                  int* counters, void* stream) {
-  if (m == 0 || n == 0) return 0;
-  if (const int err = check_plan(m, split_k, decode)) return err;
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  if (decode) {
-    const int tiles = (n + DBN - 1) / DBN;
-    const dim3 grid(tiles, (k + split_k - 1) / split_k);
-    const size_t smem = decode_smem_bytes(m, split_k);
-    const int mt = decode_mtiles(m);
-    auto kernel = mt == 1 ? w4a16_decode_kernel<1>
-                          : (mt == 2 ? w4a16_decode_kernel<2>
-                                     : w4a16_decode_kernel<4>);
-    kernel<<<grid, DTHREADS, smem, st>>>(xb, payload, scales, s32, y, work,
-                                         counters, m, k, nw, n, tiles * DBN,
-                                         split_k);
-  } else {
-    const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-    w4a16_kernel<<<grid, 128, 0, st>>>(xb, payload, scales, s32, y, m, k, nw,
-                                       n, split_k);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(x, payload, scales, s32, y, 1, m, k, nw, n, split_k,
+                       decode, work, counters, stream);
+}
+
+// The same over E = experts stacked operands: x (E, M, K), payload (E,
+// K/2, NW), scales (E, K/16, NW/16), s32 (E,), y (E, M, N), all
+// contiguous; the decode variant's work is (E, splits, M, NP) and its
+// counters (E, column tiles), zero before the first launch and left zero.
+extern "C" int mixfp4_gemm_w4a16_experts(const void* x, const uint8_t* payload,
+                                         const uint8_t* scales,
+                                         const float* s32, float* y,
+                                         int experts, int m, int k, int nw,
+                                         int n, int split_k, int decode,
+                                         float* work, int* counters,
+                                         void* stream) {
+  return launch<true>(x, payload, scales, s32, y, experts, m, k, nw, n,
+                      split_k, decode, work, counters, stream);
 }

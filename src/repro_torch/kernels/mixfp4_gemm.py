@@ -1,12 +1,16 @@
 """MixFP4 GEMMs over a packed weight, f32 out:
 
 * W4A16: y (M, N) = bf16(x) (M, K) @ decode(W) * scale32;
+* W4A16 over an expert stack: y[e] (C, N) = bf16(x[e]) @ decode(W[e]) *
+  scale32[e] for every stored expert e, in one launch;
 * W4A4: y = decode(X) @ decode(W) * x_scale32 * scale32, X packed rows;
 * W4A4 fused: the same with X = quant(RHT?(x)) computed in the prologue
   from the dense rows x.
 
 Counterpart of ``repro/kernels/mixfp4_gemm.py`` (``mixfp4_gemm_w4a16``,
-``mixfp4_gemm_w4a4``, ``mixfp4_gemm_w4a4_fused``).  The weight is payload
+``mixfp4_gemm_w4a4``, ``mixfp4_gemm_w4a4_fused``; the expert entry is
+what the reference's ``lax.map`` of ``mixfp4_gemm_w4a16`` over an MoE
+stack computes, ``repro/models/moe.py::_expert_ffn``).  The weight is payload
 (K/2, NW) u8 with two K-adjacent nibbles per byte (low nibble = even row)
 and scales (K/16, NW/16) u8, one per 16x16 tile; NW may exceed the logical
 N (zero-padded storage).  Packed activations are payload (M, K/2) and
@@ -23,7 +27,10 @@ split depth from (M, K): at M <= 64 the decode variant reduces its split
 partials inside the one launch, through an f32 workspace and one counter
 per column tile, both allocated once per device (the counters zeroed
 then and left zero by every launch) and reused by every launch, so the
-GEMMs of one device must run on one stream, as the port's do.
+GEMMs of one device must run on one stream, as the port's do.  The
+expert entry runs the same kernels with the expert as the grid's third
+axis and takes one slice of workspace and counters per expert, so each
+expert's rows are bitwise the 2-D entry's on that expert's slice.
 """
 from __future__ import annotations
 
@@ -35,10 +42,12 @@ from repro_torch.kernels import build, tuning
 from repro_torch.kernels.fwht import fwht_rows_math
 from repro_torch.kernels.mixfp4_quant import quant_block_math
 
-__all__ = ["mixfp4_gemm_w4a16", "mixfp4_gemm_w4a4", "mixfp4_gemm_w4a4_fused",
-           "gemm_w4a16_plain", "gemm_w4a4_plain", "gemm_w4a4_fused_plain",
+__all__ = ["mixfp4_gemm_w4a16", "mixfp4_gemm_w4a16_experts",
+           "mixfp4_gemm_w4a4", "mixfp4_gemm_w4a4_fused",
+           "gemm_w4a16_plain", "gemm_w4a16_experts_plain",
+           "gemm_w4a4_plain", "gemm_w4a4_fused_plain",
            "decode_weight_bf16", "decode_act_bf16", "combined_scale",
-           "launches",
+           "launches", "launches_experts",
            "launches_w4a4", "launches_w4a4_fused"]
 
 _G = 16
@@ -46,6 +55,7 @@ _G = 16
 #: kernel launches (CUDA path only), one count per kernel; read by
 #: ``kernels.ops.launch_counts``
 launches = 0
+launches_experts = 0
 launches_w4a4 = 0
 launches_w4a4_fused = 0
 
@@ -98,6 +108,16 @@ def gemm_w4a16_plain(x: torch.Tensor, payload: torch.Tensor,
     y = torch.matmul(x.to(torch.bfloat16).to(torch.float32),
                      w.to(torch.float32))
     return y * scale32.to(torch.float32)
+
+
+def gemm_w4a16_experts_plain(x: torch.Tensor, payload: torch.Tensor,
+                             scales: torch.Tensor, scale32: torch.Tensor,
+                             n_out: int) -> torch.Tensor:
+    """Plain PyTorch version of the expert entry: :func:`gemm_w4a16_plain`
+    on each expert's slice, stacked (E, C, n_out)."""
+    return torch.stack([gemm_w4a16_plain(x[e], payload[e], scales[e],
+                                         scale32[e], n_out)
+                        for e in range(x.shape[0])])
 
 
 def gemm_w4a4_plain(x_payload: torch.Tensor, x_scales: torch.Tensor,
@@ -169,17 +189,19 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 _SCRATCH: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def _plan(m: int, k: int, n: int, device: torch.device) -> tuple:
+def _plan(m: int, k: int, n: int, device: torch.device,
+          experts: int = 1) -> tuple:
     """The C launchers' plan arguments: split_k, decode, and the decode
-    variant's workspace and counters (None for the prefill variant)."""
+    variant's workspace and counters (None for the prefill variant), one
+    slice of each per expert."""
     plan = tuning.select(m, k)
     if not plan.decode:
         return plan.split_k, 0, None, None
     tiles = -(-n // tuning.BN)
-    need = plan.splits * m * tiles * tuning.BN
+    need = experts * plan.splits * m * tiles * tuning.BN
     counters, work = _SCRATCH.get(device) or (None, None)
-    if counters is None or counters.numel() < tiles:
-        counters = torch.zeros(max(tiles, 4096), dtype=torch.int32,
+    if counters is None or counters.numel() < experts * tiles:
+        counters = torch.zeros(max(experts * tiles, 4096), dtype=torch.int32,
                                device=device)
     if work is None or work.numel() < need:
         work = torch.empty(need, dtype=torch.float32, device=device)
@@ -224,6 +246,46 @@ def mixfp4_gemm_w4a16(x: torch.Tensor, payload: torch.Tensor,
     if err:
         raise RuntimeError(f"mixfp4_gemm_w4a16 launch failed: cudaError {err}")
     launches += 1
+    return y
+
+
+def mixfp4_gemm_w4a16_experts(x: torch.Tensor, payload: torch.Tensor,
+                              scales: torch.Tensor, scale32: torch.Tensor, *,
+                              n_out: int | None = None) -> torch.Tensor:
+    """Every expert of a stack in one launch: x (E, C, K) bf16/f32,
+    payload (E, K/2, NW), scales (E, K/16, NW/16), scale32 (E,) ->
+    (E, C, n_out) f32, expert e's rows bitwise :func:`mixfp4_gemm_w4a16`
+    on its slice.  CUDA tensors launch the kernel; CPU tensors take the
+    plain version."""
+    global launches_experts
+    if x.ndim != 3 or payload.ndim != 3 or scales.ndim != 3:
+        raise ValueError(f"x {tuple(x.shape)}, payload "
+                         f"{tuple(payload.shape)} and scales "
+                         f"{tuple(scales.shape)} must be (E, ...) stacks")
+    e, c, k = x.shape
+    if payload.shape[0] != e or scales.shape[0] != e:
+        raise ValueError(f"x holds {e} experts, payload "
+                         f"{payload.shape[0]}, scales {scales.shape[0]}")
+    n_out = _check_weight(k, payload[0], scales[0], n_out)
+    s32 = torch.as_tensor(scale32, dtype=torch.float32, device=x.device)
+    if s32.shape != (e,):
+        raise ValueError(f"scale32 {tuple(s32.shape)}: expected ({e},)")
+    if x.device.type == "cpu":
+        return gemm_w4a16_experts_plain(x, payload, scales, s32, n_out)
+    _on_card(x.device, ("payload", payload), ("scales", scales))
+    xb = _aligned(x.to(torch.bfloat16))
+    s32 = s32.contiguous()
+    payload = _aligned(payload)
+    y = torch.empty((e, c, n_out), dtype=torch.float32, device=x.device)
+    plan = _plan(c, k, n_out, x.device, experts=e)
+    err = _fn("mixfp4_gemm_w4a16", "mixfp4_gemm_w4a16_experts")(
+        xb.data_ptr(), payload.data_ptr(), scales.data_ptr(), s32.data_ptr(),
+        y.data_ptr(), e, c, k, payload.shape[2], n_out, *plan,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"mixfp4_gemm_w4a16_experts launch failed: "
+                           f"cudaError {err}")
+    launches_experts += 1
     return y
 
 
@@ -317,6 +379,8 @@ _PLAN_ARGS = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
 _ARGTYPES = {
     # C function -> ctypes argument types
     "mixfp4_gemm_w4a16": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    + _PLAN_ARGS + [ctypes.c_void_p],
+    "mixfp4_gemm_w4a16_experts": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
     + _PLAN_ARGS + [ctypes.c_void_p],
     "mixfp4_gemm_w4a4": [ctypes.c_void_p] * 3 + [ctypes.c_int]
     + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + _PLAN_ARGS

@@ -13,6 +13,7 @@ from __future__ import annotations
 from repro_torch.kernels import fwht, mixfp4_attn, mixfp4_gemm, mixfp4_quant
 
 __all__ = ["quantize_rows", "quantize_kv", "pack_weight_qt", "gemm_w4a16",
+           "gemm_w4a16_experts",
            "gemm_w4a4", "gemm_w4a4_fused", "rht_rows", "rht_row_scale",
            "attn_decode_packed",
            "attn_decode_paged", "launch_counts", "reset_launch_counts",
@@ -22,6 +23,7 @@ __all__ = ["quantize_rows", "quantize_kv", "pack_weight_qt", "gemm_w4a16",
 KERNELS = {
     "mixfp4_quant_rows": (mixfp4_quant, "launches"),
     "mixfp4_gemm_w4a16": (mixfp4_gemm, "launches"),
+    "mixfp4_gemm_w4a16_experts": (mixfp4_gemm, "launches_experts"),
     "mixfp4_attn_decode": (mixfp4_attn, "launches"),
     "mixfp4_attn_decode_paged": (mixfp4_attn, "launches_paged"),
     "mixfp4_gemm_w4a4": (mixfp4_gemm, "launches_w4a4"),
@@ -71,6 +73,13 @@ def pack_weight_qt(w, method: str = "mixfp4",
 def gemm_w4a16(x, payload, scales, scale32, *, n_out=None):
     return mixfp4_gemm.mixfp4_gemm_w4a16(x, payload, scales, scale32,
                                          n_out=n_out)
+
+
+def gemm_w4a16_experts(x, payload, scales, scale32, *, n_out=None):
+    """Every expert of an MoE stack through the W4A16 kernel in one
+    launch: x (E, C, K) -> (E, C, N) f32."""
+    return mixfp4_gemm.mixfp4_gemm_w4a16_experts(x, payload, scales,
+                                                 scale32, n_out=n_out)
 
 
 def gemm_w4a4(xp, xs, xs32, payload, scales, scale32, *,

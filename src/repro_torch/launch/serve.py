@@ -11,16 +11,26 @@ Usage (on the GPU; ``--device cpu`` runs the kernels' plain versions):
       --smoke --device cpu --kv-quant mixfp4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
       --smoke --device cpu --kv-quant mixfp4 --kv-pool 9 --prefill-chunk 4
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen2-moe-a2.7b --kv-quant mixfp4
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen3-moe-30b-a3b --smoke --device cpu --kv-quant mixfp4
+
+Each layer's projections are packed as soon as they are drawn (unless
+``--act-rht``, whose rotation the engine applies to dense weights), so a
+full-width MoE model never exists in f32 on the device.
 """
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
 import numpy as np
 import torch
 
 from repro_torch import configs, resolve_device
+from repro_torch.core import qtensor
 from repro_torch.kernels import ops
 from repro_torch.models import build_model
 from repro_torch.serving.engine import Request, ServeEngine
@@ -90,8 +100,11 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = (configs.smoke_config(args.arch) if args.smoke
            else configs.config(args.arch))
-    params = build_model(cfg).init(args.seed, device=device)
-    n_params = sum(t.numel() for t in _leaves(params))
+    params = build_model(cfg).init(
+        args.seed, device=device, pack=None if args.act_rht else args.quant)
+    n_params = sum(math.prod(t.shape) * t.batch_size()
+                   if isinstance(t, qtensor.QTensor) else t.numel()
+                   for t in _leaves(params))
     print(f"[serve] {cfg.name}: {n_params / 1e6:.1f}M params on {device}")
     engine = ServeEngine(cfg, params, batch_size=args.batch,
                          max_len=args.max_len, method=args.quant,

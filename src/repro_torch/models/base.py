@@ -29,12 +29,13 @@ __all__ = ["ArchConfig", "ActQuant", "ACT_QUANT_MODES", "PROJECTION_KEYS",
            "is_packable_projection", "pack_projections", "padded_vocab",
            "decode_positions", "rms_norm", "apply_rope", "qlinear",
            "rht_signs_on_grid", "attention", "KV_SCALE32",
-           "quantize_kv_rows", "attn_apply", "mlp", "lm_logits"]
+           "quantize_kv_rows", "attn_apply", "linear_init", "mlp_init",
+           "mlp", "lm_logits"]
 
 
 @dataclass(frozen=True)
 class ArchConfig:
-    """The dense-family fields of the reference ``ArchConfig``."""
+    """The dense- and MoE-family fields of the reference ``ArchConfig``."""
 
     name: str = "model"
     family: str = "dense"
@@ -53,6 +54,14 @@ class ArchConfig:
     window: int = 0              # sliding-window attention (0 = full)
     local_global_period: int = 0
     attn_chunk: int = 1024       # query rows per attention block
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    shared_expert_ff: int = 0
+    ep_mode: str = "expert"      # 'expert' pads the stack to 16s | 'ffn'
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
     norm_eps: float = 1e-5
     emb_scale: bool = False      # gemma-style sqrt(d) embedding scaling
 
@@ -77,8 +86,11 @@ PROJECTION_KEYS = frozenset({"wq", "wk", "wv", "wo", "w_up", "w_down",
 
 
 def is_packable_projection(key: str, leaf) -> bool:
+    """A projection-named leaf whose trailing (K, N) matrix fills at least
+    one 16x16 tile; leading dims (an MoE expert stack) ride along as
+    QTensor batch dims."""
     return (key in PROJECTION_KEYS and isinstance(leaf, torch.Tensor)
-            and leaf.ndim == 2 and min(leaf.shape) >= 16)
+            and leaf.ndim >= 2 and min(leaf.shape[-2:]) >= 16)
 
 
 def pack_projections(params, method: str = "mixfp4",
@@ -86,9 +98,13 @@ def pack_projections(params, method: str = "mixfp4",
                      act_rht: bool = False):
     """Replace every dense projection weight of a parameter tree (nested
     dicts and lists) with a packed 2-D-tiled QTensor.  Leaves that are
-    already QTensors pass through unchanged.  Returns
-    ``(packed_tree, packed_bytes, dense_bytes)`` over all projection leaves
-    (dense counted at bf16 rates).
+    already QTensors pass through unchanged.  A stack (E, K, N) of expert
+    matrices is quantized matrix by matrix into one QTensor whose children
+    lead with E, each expert with its own ``scale32`` (the reference's
+    ``vmap`` of ``quantize``); stacks are not padded past their tiles.
+    Returns ``(packed_tree, packed_bytes, dense_bytes)`` over all
+    projection leaves (dense counted at bf16 rates, every stored expert
+    included).
 
     ``act_rht=True`` rotates each dense projection along K with the
     serve-time grouped RHT (``hadamard.serve_signs(K)``, group 16) before
@@ -101,16 +117,20 @@ def pack_projections(params, method: str = "mixfp4",
 
     def convert(w):
         if not isinstance(w, qtensor.QTensor) and act_rht:
-            k = w.shape[0]
+            k = w.shape[-2]
             if k % 16:
                 raise ValueError(
                     f"pack_projections(act_rht=True): projection K={k} "
                     f"must be a multiple of the RHT group (16)")
             signs = torch.from_numpy(hadamard.serve_signs(k)).to(w.device)
             signs_used[str(k)] = signs
-            w = hadamard.rht(w, signs, dim=0, group=16)
-        qt = w if isinstance(w, qtensor.QTensor) else qtensor.quantize(w,
-                                                                       spec)
+            w = hadamard.rht(w, signs, dim=-2, group=16)
+        if isinstance(w, qtensor.QTensor):
+            qt = w
+        elif w.ndim == 2:
+            qt = qtensor.quantize(w, spec)
+        else:
+            qt = qtensor.stack([qtensor.quantize(m, spec) for m in w])
         stats["packed"] += qt.nbytes
         stats["dense"] += math.prod(qt.shape) * qt.batch_size() * 2
         return qt
@@ -210,7 +230,7 @@ def qlinear(x: torch.Tensor, w, act: ActQuant = ActQuant()) -> torch.Tensor:
     if not isinstance(w, qtensor.QTensor):
         raise NotImplementedError(
             "dense (qdq-simulated) projections belong to the training "
-            "slice (ROADMAP §1 item 10); serve packed weights")
+            "slice (ROADMAP §1 item 6); serve packed weights")
     if act.mode == "bf16":
         return qtensor.qmm(x, w).to(x.dtype)
     if act.mode not in ACT_QUANT_MODES:
@@ -445,6 +465,27 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     if x.dtype != torch.bfloat16:
         return F.silu(x)
     return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def linear_init(d_in: int, d_out: int, gen: torch.Generator,
+                device: torch.device) -> torch.Tensor:
+    """A (d_in, d_out) f32 projection drawn N(0, 1/d_in), as the
+    reference's ``linear_init``."""
+    return torch.randn((d_in, d_out), generator=gen, device=device,
+                       dtype=torch.float32) * (1.0 / math.sqrt(d_in))
+
+
+def mlp_init(cfg: ArchConfig, gen: torch.Generator, device: torch.device,
+             d_ff: int | None = None) -> dict:
+    """The MLP's projections (``w_up``, ``w_down``, and ``w_gate`` for the
+    gated types), drawn in that order; ``d_ff`` overrides ``cfg.d_ff``
+    (an MoE layer's shared expert)."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    p = {"w_up": linear_init(d, f, gen, device),
+         "w_down": linear_init(f, d, gen, device)}
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        p["w_gate"] = linear_init(d, f, gen, device)
+    return p
 
 
 def mlp(p: dict, x: torch.Tensor, cfg: ArchConfig,

@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM, dense family: init, KV cache, batched
-single-slot prefill and one-token decode.
+"""Decoder-only transformer LM, dense and MoE families: init, KV cache,
+batched single-slot prefill and one-token decode.
 
 Counterpart of ``repro/models/transformer.py``.  Parameters are plain
 dicts of tensors with one dict per layer in ``params["layers"]`` (the
@@ -10,7 +10,8 @@ scale32 (L,)) for ``kv_quant="mixfp4"``, or bf16 tensors
 (L, B, S, Hkv, dh).  The paged pool (``pages=``) holds page slabs
 (L, P, page_len, Hkv, ...) instead, plus a ``"pages"`` block table
 (B, max_len // page_len) int32.  Prefill and decode update the cache IN
-PLACE and return it.
+PLACE and return it.  An MoE layer (``cfg.n_experts``) holds ``"moe"``
+(``models.moe``) where a dense one holds ``"mlp"``.
 """
 from __future__ import annotations
 
@@ -21,58 +22,58 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import qtensor
-from repro_torch.models import base
-from repro_torch.models.base import ActQuant, ArchConfig
+from repro_torch.models import base, moe
+from repro_torch.models.base import ActQuant, ArchConfig, pack_projections
 
 __all__ = ["TransformerLM"]
 
 
 class TransformerLM:
     def __init__(self, cfg: ArchConfig):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP §1 "
-                "item 8); the port serves the dense family")
+                "item 5); the port serves the dense and MoE families")
         self.cfg = cfg
 
     # ------------------------------------------------------------------
     # init
     # ------------------------------------------------------------------
-    def init(self, seed: int = 0, device="cuda") -> dict:
+    def init(self, seed: int = 0, device="cuda",
+             pack: str | None = None) -> dict:
         """Random weights from ``seed`` on ``device`` (same distributions
         as the reference: projections N(0, 1/d_in), embedding N(0, 0.02^2),
-        norms 1).  The draws differ from ``jax.random``'s."""
+        norms 1; MoE layers as ``moe.moe_init``).  The draws differ from
+        ``jax.random``'s.  ``pack`` (a method, ``"mixfp4"``) packs each
+        layer's projections as soon as they are drawn, so at most one
+        layer is ever held dense (a full-width MoE stack is ~59 GB in
+        f32); the bytes equal ``pack_projections`` of the dense tree."""
         cfg = self.cfg
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
-
-        def normal(shape, std):
-            return torch.randn(shape, generator=gen, device=dev,
-                               dtype=torch.float32) * std
-
-        def linear(d_in, d_out):
-            return normal((d_in, d_out), 1.0 / math.sqrt(d_in))
-
         d, dh = cfg.d_model, cfg.dh
         layers = []
         for _ in range(cfg.n_layers):
-            attn = {"wq": linear(d, cfg.n_heads * dh),
-                    "wk": linear(d, cfg.n_kv_heads * dh),
-                    "wv": linear(d, cfg.n_kv_heads * dh),
-                    "wo": linear(cfg.n_heads * dh, d)}
+            attn = {"wq": base.linear_init(d, cfg.n_heads * dh, gen, dev),
+                    "wk": base.linear_init(d, cfg.n_kv_heads * dh, gen, dev),
+                    "wv": base.linear_init(d, cfg.n_kv_heads * dh, gen, dev),
+                    "wo": base.linear_init(cfg.n_heads * dh, d, gen, dev)}
             if cfg.qk_norm:
                 attn["q_norm"] = torch.ones(dh, device=dev)
                 attn["k_norm"] = torch.ones(dh, device=dev)
-            mlp = {"w_up": linear(d, cfg.d_ff),
-                   "w_down": linear(cfg.d_ff, d)}
-            if cfg.mlp_type in ("swiglu", "geglu"):
-                mlp["w_gate"] = linear(d, cfg.d_ff)
-            layers.append({"ln_attn": torch.ones(d, device=dev),
-                           "attn": attn,
-                           "ln_mlp": torch.ones(d, device=dev),
-                           "mlp": mlp})
-        return {"embed": normal((base.padded_vocab(cfg.vocab), d), 0.02),
-                "layers": layers,
+            layer = {"ln_attn": torch.ones(d, device=dev),
+                     "attn": attn,
+                     "ln_mlp": torch.ones(d, device=dev)}
+            if cfg.n_experts:
+                layer["moe"] = moe.moe_init(cfg, gen, dev)
+            else:
+                layer["mlp"] = base.mlp_init(cfg, gen, dev)
+            if pack is not None:
+                layer = pack_projections(layer, method=pack)[0]
+            layers.append(layer)
+        embed = torch.randn((base.padded_vocab(cfg.vocab), d), generator=gen,
+                            device=dev, dtype=torch.float32) * 0.02
+        return {"embed": embed, "layers": layers,
                 "ln_f": torch.ones(d, device=dev)}
 
     def layer_windows(self) -> np.ndarray:
@@ -198,7 +199,10 @@ class TransformerLM:
                                     cache_len=cache_len, prefill=prefill,
                                     act=act, block_tables=block_tables)
             h = base.rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
-            x = x + base.mlp(lp["mlp"], h, cfg, act)
+            if cfg.n_experts:
+                x = x + moe.moe_apply(lp["moe"], h, cfg, act)
+            else:
+                x = x + base.mlp(lp["mlp"], h, cfg, act)
         return base.rms_norm(x, params["ln_f"], cfg.norm_eps)
 
     def prefill_slot(self, params, tokens: torch.Tensor, cache: dict,

@@ -1,7 +1,8 @@
 """Greedy continuous-batching serving engine over packed MixFP4 weights and
 an optional packed MixFP4 KV cache.
 
-Counterpart of ``repro/serving/engine.py``, fixed-slot path: projection
+Counterpart of ``repro/serving/engine.py``, fixed-slot path, for the
+dense and MoE families: projection
 weights are held only as packed QTensors and every projection runs the
 W4A16 kernel, or with ``act_quant`` one of the W4A4 paths (``"mixfp4"``:
 per-row activation quantization fused into the GEMM; ``act_rht=True``
@@ -22,6 +23,12 @@ attention kernel.  ``prefill_chunk=T`` splits each admission's prefill
 into T-token chunks, one per ``step()`` ahead of the decode
 (``serving.scheduler``).  Both leave the emitted streams bitwise those of
 the fixed-slot, whole-prompt engine.
+
+An MoE model (``family="moe"``) serves W4A16 only.  Its capacity router
+couples the rows of one pass (the capacity is a function of the token
+count, pads and idle lanes included), so for it neither bucketing nor
+chunking leaves the streams unchanged, and its pool is a plain page
+allocator without prefix caching, as in the reference.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): the request lifecycle (queue, faults, deadlines, journal, watchdog,
@@ -50,12 +57,12 @@ REASON_NAN_LOGITS = "nan_logits"
 
 # engine argument -> the ROADMAP item that ports it
 _NOT_PORTED = {
-    "faults": "§1 item 9 (serving lifecycle)",
-    "journal_dir": "§1 item 9 (serving lifecycle)",
-    "hung_step_budget_ms": "§1 item 9 (serving lifecycle)",
-    "deadline_ms": "§1 item 9 (serving lifecycle)",
-    "ttft_budget_ms": "§1 item 9 (serving lifecycle)",
-    "mesh": "§1 item 11 (multi-GPU)",
+    "faults": "§1 item 4 (serving lifecycle)",
+    "journal_dir": "§1 item 4 (serving lifecycle)",
+    "hung_step_budget_ms": "§1 item 4 (serving lifecycle)",
+    "deadline_ms": "§1 item 4 (serving lifecycle)",
+    "ttft_budget_ms": "§1 item 4 (serving lifecycle)",
+    "mesh": "§1 item 7 (multi-GPU)",
 }
 
 
@@ -147,7 +154,8 @@ def _check_rht_signs(params: dict, act_rht: bool):
 
 
 class ServeEngine:
-    """Greedy continuous-batching decoder for the dense transformer."""
+    """Greedy continuous-batching decoder for the dense and MoE
+    transformers."""
 
     def __init__(self, cfg: ArchConfig, params, *, batch_size: int = 8,
                  max_len: int = 512, pack_weights: bool = True,
@@ -184,10 +192,14 @@ class ServeEngine:
                     f"kv_page_len={kv_page_len} must be a multiple of 16 "
                     f"(the MixFP4 block) and divide max_len={max_len}")
         _validate_act(act_quant, act_rht, pack_weights)
+        if cfg.family == "moe" and act_quant not in (None, "bf16"):
+            raise NotImplementedError(
+                f"act_quant={act_quant!r}: W4A4 for MoE experts is not "
+                "ported yet (ROADMAP §1 item 5); serve MoE models W4A16")
         if not pack_weights:
             raise NotImplementedError(
                 "dense qdq-simulated serving belongs to the training slice "
-                "(ROADMAP §1 item 10); serve packed weights")
+                "(ROADMAP §1 item 6); serve packed weights")
         if prefill_buckets not in (None, "off", "auto", "pow2-64"):
             raise ValueError(f"unknown prefill_buckets {prefill_buckets!r}")
         if prefill_chunk is not None:
@@ -217,10 +229,14 @@ class ServeEngine:
         _check_rht_signs(self.params, act_rht)
         self.compression = (self.dense_bytes / self.packed_bytes
                             if self.packed_bytes else 1.0)
-        # the paged pool (page 0 is its trash page) with prefix caching
+        # the paged pool (page 0 is its trash page); prefix caching needs a
+        # suffix prefill bitwise the whole one, which only the dense family
+        # gives (MoE's capacity couples the rows): the others get a plain
+        # page allocator and always prefill from position 0
         self.kv_page_len = kv_page_len
         if kv_pool is not None:
-            self.kv_pool = KVPool(kv_pool, kv_page_len)
+            self.kv_pool = KVPool(kv_pool, kv_page_len,
+                                  enable_prefix=cfg.family == "dense")
             self.cache = self.model.init_cache(
                 batch_size, max_len, device=self.device, kv_quant="mixfp4",
                 pages=(kv_pool, kv_page_len))

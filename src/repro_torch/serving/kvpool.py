@@ -1,10 +1,7 @@
 """Paged packed-KV pool: block tables, prefix caching, COW, LRU eviction.
 
 Counterpart of ``repro/serving/kvpool.py``, ported verbatim: the same
-admissions, prefix tree and counters for the same call sequence.  The
-reference's ``enable_prefix=False`` plain-allocator mode, which only its
-hybrid family uses, is left out: the port serves the dense family, whose
-pool always caches prefixes.
+admissions, prefix tree and counters for the same call sequence.
 
 The fixed-slot engine ties one ``max_len`` cache stripe to each batch lane,
 so concurrency is capped at ``batch_size`` and every admission re-prefills
@@ -46,6 +43,12 @@ Sharing model
   prefix simply misses and re-prefills (the quantized bytes it recomputes
   are bitwise the evicted ones, by the pinned-scale contract).
 
+``enable_prefix=False`` degenerates to a plain page allocator: no prefix
+match, nothing registered, every admission prefills from position 0.  The
+engine serves the MoE family so, whose capacity router couples a prompt's
+rows (a suffix would compete for other expert capacity than the whole
+prompt did).
+
 Page 0 is the **trash page**: never allocated, the target of every unused
 block-table entry (so a zeroed table row is valid), and the scatter sink
 for inactive batch lanes.  Its bytes are junk; every read of it is masked
@@ -75,7 +78,8 @@ class Admission:
 class KVPool:
     """Reference-counted pool of packed KV pages with prefix caching."""
 
-    def __init__(self, num_pages: int, page_len: int):
+    def __init__(self, num_pages: int, page_len: int,
+                 *, enable_prefix: bool = True):
         if num_pages < 2:
             raise ValueError("num_pages must be >= 2 (page 0 is the trash "
                              f"page), got {num_pages}")
@@ -83,6 +87,7 @@ class KVPool:
             raise ValueError(f"page_len must be >= 1, got {page_len}")
         self.num_pages = num_pages
         self.page_len = page_len
+        self.enable_prefix = enable_prefix
         self._free = list(range(num_pages - 1, 0, -1))  # pop() -> page 1 first
         self._ref = [0] * num_pages
         # prefix tree: page -> (parent, chunk); (parent, chunk) -> page
@@ -177,7 +182,8 @@ class KVPool:
         cover the request even after eviction — nothing is consumed."""
         tokens = tuple(int(t) for t in tokens)
         n_total = self.pages_needed(len(tokens), max_new_tokens)
-        full, shared, partial = self._match(tokens)
+        full, shared, partial = (self._match(tokens) if self.enable_prefix
+                                 else ([], 0, None))
         # Pin matched pages first so eviction during allocation below can
         # never reclaim them out from under this admission.
         for page in full:
@@ -214,6 +220,8 @@ class KVPool:
         chunks plus the terminal partial).  Existing nodes win: a page
         whose (parent, chunk) is already claimed stays untracked and is
         simply freed on release."""
+        if not self.enable_prefix:
+            return
         tokens = tuple(int(t) for t in tokens)
         node, pos, idx = _ROOT, 0, 0
         while pos < len(tokens):

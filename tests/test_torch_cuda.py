@@ -16,8 +16,15 @@ attention 1e-4; the fused W4A4 kernel bitwise equal to the quantizer
 followed by the packed W4A4 kernel on the card; the paged attention
 kernel bitwise equal to the fixed-slot one on the gathered rows, and a
 sequence's attention output bitwise independent of B and of the cache's
-capacity (the key splits come from key positions alone).
+capacity (the key splits come from key positions alone).  The expert
+W4A16 entry (one launch for a stack of experts) bitwise the 2-D entry on
+each expert's slice, within 1e-3 of max|plain| of its plain version, exact
+zeros for zero (dummy) experts; an MoE decode step bitwise equal to itself
+on the same state; attention and the KV write at Qwen1.5-MoE's heads
+(dh 128, g 1).
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -46,6 +53,7 @@ ATTN_CASES = [
     (3, 768, 1, 2, 48, 0, 0.0, [256, 512, 768]),     # multiples of SPLIT_S
     (2, 300, 1, 8, 256, 0, 50.0, [300, 257]),        # g = 8 at dh = 256
     (3, 300, 2, 2, 32, 0, 30.0, [0, 300, 1]),        # no valid key: zeros
+    (4, 700, 16, 1, 128, 0, 0.0, [700, 333, 1, 512]),  # qwen2-moe heads
 ]
 
 
@@ -180,6 +188,9 @@ KV_CASES = [
     ("paged_decode_idle", 4, 1, 2, 32, (9, 16), [31, 0, 16, 0],
      [[4, 2, 7], [0, 0, 0], [1, 8, 0], [0, 0, 0]]),
     ("paged_prefill", 1, 50, 3, 48, (8, 16), 30, [[3, 5, 2, 6, 0]]),
+    ("fixed_decode_moe", 4, 1, 16, 128, (4, 40), [0, 17, 39, 5], None),
+    ("paged_decode_moe", 4, 1, 16, 128, (9, 16), [31, 0, 16, 40],
+     [[4, 2, 7], [0, 0, 0], [1, 8, 0], [3, 5, 6]]),
 ]
 
 
@@ -503,6 +514,7 @@ def test_paged_chunked_engine_on_the_card_launches_the_paged_kernel(cuda):
     assert got == {
         "mixfp4_quant_rows": 0,
         "mixfp4_gemm_w4a16": 7 * n_l * passes,
+        "mixfp4_gemm_w4a16_experts": 0,
         "mixfp4_attn_decode": 0,
         "mixfp4_attn_decode_paged": n_l * eng.decode_steps,
         "mixfp4_gemm_w4a4": 0, "mixfp4_gemm_w4a4_fused": 0,
@@ -531,6 +543,7 @@ def test_engine_on_the_card_launches_every_kernel(cuda):
     assert ops.launch_counts() == {
         "mixfp4_quant_rows": 0,
         "mixfp4_gemm_w4a16": 7 * n_l * passes,
+        "mixfp4_gemm_w4a16_experts": 0,
         "mixfp4_attn_decode": n_l * eng.decode_steps,
         "mixfp4_attn_decode_paged": 0,
         "mixfp4_gemm_w4a4": 0, "mixfp4_gemm_w4a4_fused": 0,
@@ -561,9 +574,136 @@ def test_w4a4_rht_engine_on_the_card_launches_its_kernels(cuda):
     assert ops.launch_counts() == {
         "mixfp4_quant_rows": 0,
         "mixfp4_gemm_w4a16": 0,
+        "mixfp4_gemm_w4a16_experts": 0,
         "mixfp4_attn_decode": n_l * eng.decode_steps,
         "mixfp4_attn_decode_paged": 0,
         "mixfp4_gemm_w4a4": 0,
         "mixfp4_gemm_w4a4_fused": 7 * n_l * passes,
         "fwht_rows": 0, "mixfp4_quant_kv": n_l * passes,
         "fwht_row_scale": 7 * n_l * passes}
+
+
+# ---------------------------------------------------------------------------
+# the expert W4A16 entry and the MoE family
+# ---------------------------------------------------------------------------
+EXPERT_KN = [(2048, 1408), (1408, 2048)]    # qwen2-moe up/gate, down
+EXPERT_CS = [1, 5, 64, 65, 380]
+
+
+@functools.lru_cache(maxsize=None)
+def _expert_stack(k: int, n: int):
+    """64 stored experts (the last 4 zero, as qwen2-moe's dummy experts)
+    packed on the card."""
+    from repro_torch.models.base import pack_projections
+    gen = torch.Generator(device="cuda").manual_seed(k + n)
+    w = torch.randn(64, k, n, generator=gen, device="cuda") / k ** 0.5
+    w[60:] = 0.0
+    return pack_projections({"w_up": w})[0]["w_up"]
+
+
+@pytest.mark.parametrize("c", EXPERT_CS)
+@pytest.mark.parametrize("kn", EXPERT_KN)
+def test_gemm_experts_kernel_bitwise_per_expert_and_vs_plain(cuda, kn, c):
+    """One launch for all 64 experts equals the 2-D launch on each
+    expert's slice bitwise (C <= 64: the decode variant; above: the
+    prefill tile), is within 1e-3 of max|plain| of its plain version, and
+    gives exact zeros for the zero experts.  K = 1408 is 5.5 splits."""
+    k, n = kn
+    qw = _expert_stack(k, n)
+    gen = torch.Generator(device="cuda").manual_seed(c)
+    x = torch.randn(64, c, k, generator=gen, device=cuda).to(torch.bfloat16)
+    before = mixfp4_gemm.launches_experts
+    y = qtensor.qmm_experts(x, qw)
+    assert mixfp4_gemm.launches_experts == before + 1
+    assert y.shape == (64, c, n) and y.dtype == torch.float32
+    for e in range(64):
+        assert torch.equal(y[e], qtensor.qmm(x[e], qw.replace(
+            payload=qw.payload[e], scales=qw.scales[e],
+            scale32=qw.scale32[e]))), e
+    assert not y[60:].any()
+    yp = mixfp4_gemm.gemm_w4a16_experts_plain(x, qw.payload, qw.scales,
+                                              qw.scale32, n)
+    assert float((y - yp).abs().max()) <= 1e-3 * float(yp.abs().max())
+    # rows independent of C, and repeat calls bitwise equal
+    assert torch.equal(qtensor.qmm_experts(x[:, :1], qw), y[:, :1])
+    assert torch.equal(qtensor.qmm_experts(x, qw), y)
+
+
+def test_gemm_experts_wrapper_refuses_bad_operands(cuda):
+    qw = _expert_stack(1408, 2048)
+    x = torch.zeros(64, 5, 1408, dtype=torch.bfloat16, device=cuda)
+    G = mixfp4_gemm.mixfp4_gemm_w4a16_experts
+    with pytest.raises(ValueError, match="uint8"):
+        G(x, qw.payload.to(torch.int8), qw.scales, qw.scale32)
+    with pytest.raises(ValueError, match="experts"):
+        G(x[:63], qw.payload, qw.scales, qw.scale32)
+    with pytest.raises(ValueError):
+        G(x[..., :1024], qw.payload, qw.scales, qw.scale32)
+    with pytest.raises(ValueError, match="contiguous on"):
+        G(x, qw.payload.cpu(), qw.scales, qw.scale32)
+    strided = torch.empty((*qw.scales.shape[:2], 2 * qw.scales.shape[2]),
+                          dtype=torch.uint8, device=cuda)[..., ::2]
+    strided.copy_(qw.scales)
+    with pytest.raises(ValueError, match="contiguous on"):
+        G(x, qw.payload, strided, qw.scale32)
+
+
+def _moe_engine(cuda, arch="qwen2-moe-a2.7b", **kw):
+    cfg = configs.smoke_config(arch)
+    params = build_model(cfg).init(0, device=cuda, pack="mixfp4")
+    return cfg, ServeEngine(cfg, params, batch_size=2, max_len=64,
+                            kv_quant="mixfp4", device=cuda, **kw)
+
+
+def test_moe_decode_step_is_deterministic(cuda):
+    """The same MoE decode step twice on the same state: bitwise equal
+    logits and KV bytes (dispatch and combine use no atomics)."""
+    cfg, eng = _moe_engine(cuda)
+    for i, n in enumerate((7, 12)):
+        eng.add_request(Request(uid=i, prompt=np.arange(1, n + 1,
+                                                        dtype=np.int32),
+                                max_new_tokens=8))
+    eng.step()
+    toks = torch.tensor([3, 5], device=cuda)
+    lens = torch.as_tensor(eng.lengths, device=cuda)
+    out = []
+    for _ in range(2):
+        cache = {k: (v.replace(payload=v.payload.clone(),
+                               scales=v.scales.clone())
+                     if isinstance(v, qtensor.QTensor) else v.clone())
+                 for k, v in eng.cache.items()}
+        logits, cache = eng.model.decode_step(eng.params, toks, cache, lens,
+                                              act=eng.act)
+        out.append((logits, cache["k"].payload, cache["v"].payload))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("kw", [{}, {"kv_pool": 17},
+                                {"kv_pool": 17, "prefill_chunk": 8}],
+                         ids=["fixed", "pool", "pool_chunked"])
+def test_moe_engine_on_the_card_launches_every_kernel(cuda, kw, arch):
+    """Per pass each layer launches 4 2-D W4A16 GEMMs for attention (and 3
+    for a shared expert), one expert launch per expert projection (3), one
+    KV write; per decode pass one attention (paged on the pool)."""
+    cfg, eng = _moe_engine(cuda, arch, **kw)
+    ops.reset_launch_counts()
+    reqs = [Request(uid=i, prompt=np.arange(3 + 4 * i, dtype=np.int32),
+                    max_new_tokens=5) for i in range(3)]
+    pending = list(reqs)
+    while pending or eng.has_work():
+        while pending and eng.add_request(pending[0]):
+            pending.pop(0)
+        eng.step()
+    assert all(len(r.generated) == 5 for r in reqs)
+    n_l = cfg.n_layers
+    passes = eng.prefill_dispatches + eng.decode_steps
+    attn = "mixfp4_attn_decode_paged" if kw else "mixfp4_attn_decode"
+    want = {name: 0 for name in ops.KERNELS}
+    n_2d = 4 + (3 if cfg.shared_expert_ff else 0)
+    want.update({"mixfp4_gemm_w4a16": n_2d * n_l * passes,
+                 "mixfp4_gemm_w4a16_experts": 3 * n_l * passes,
+                 "mixfp4_quant_kv": n_l * passes,
+                 attn: n_l * eng.decode_steps})
+    assert ops.launch_counts() == want
