@@ -43,17 +43,22 @@ Phases (any failed check raises, so the script exits non-zero):
    same K/V bytes and give the same next-step logits, bitwise;
 2m. (with phase 2) the expert W4A16 entry over 64 experts (4 of them
    zero) at qwen2-moe's (K, N) and C in (1, 5, 64, 65, 380): within 1e-3
-   of max|plain| and bitwise the 2-D entry on every expert's slice, zero
-   experts exact zeros; attention (fixed and paged) and the KV write at
-   Qwen1.5-MoE's heads (B=4, H=Hkv=16, dh=128) against their plain
-   versions;
+   of max|plain| and bitwise the 2-D entry on every expert's slice (int32
+   views), on random rows and on the MoE layer's own dispatch buffers with
+   a -0.0 expert, NaN, Inf and last-split-only rows, experts without a
+   non-zero row exact +0; one layer's three expert launches at C = 5 timed
+   on (a) 64 experts of random rows and (b) the served B = 4 dispatch (16
+   experts hold a row), each beside its byte bound; attention (fixed and
+   paged) and the KV write at Qwen1.5-MoE's heads (B=4, H=Hkv=16, dh=128)
+   against their plain versions;
 3m. phase 3's requests served by qwen2-moe-a2.7b (Qwen1.5-MoE-A2.7B) at
    full width and depth (24 layers, 60 experts stored as 64, a shared
    expert; every layer drawn and packed on its own) in fixed slots:
    exact launch counts (per pass and layer 7 ``mixfp4_gemm_w4a16``, 3
    ``mixfp4_gemm_w4a16_experts``, one KV write; one attention per decode
    pass), a decode step run twice on the same state bitwise equal, five
-   traced decode steps;
+   traced decode steps (exactly 3 expert-kernel rows per layer and step;
+   the expert GEMM's device ms per step);
 3m-paged. the same through the pool as a plain page allocator (MoE has no
    prefix caching): the streams must equal phase 3m's, with no prefix hit;
 4m. qwen2-moe at full width cut to 2 layers, card vs CPU logits.
@@ -1107,33 +1112,100 @@ def check_fwht(dev, flush) -> list[dict]:
 # ---------------------------------------------------------------------------
 # qwen2-moe: 64 stored experts (60 + 4 zero); up/gate (2048, 1408), down
 # (1408, 2048); one decode layer's three expert projections
-MOE_EXPERTS, MOE_REAL = 64, 60
+MOE_EXPERTS, MOE_REAL, MOE_TOP_K = 64, 60, 4
 MOE_LAYER = [(2048, 1408), (2048, 1408), (1408, 2048)]
 # rows per expert: 1; 5 (B = 4 decode: cap 4 + the discard row); the
 # decode variant's last M; the prefill tile's first; a 4544-token prefill
 # (cap 379 + 1)
 MOE_CS = (1, 5, 64, 65, 380)
+# tokens routed for each C: cap = max(ceil(T * 4 * 1.25 / 60), 4) = C - 1
+# (C = 1: cap 0, every choice dropped into the discard row)
+MOE_TOKENS = {1: 4, 5: 4, 64: 756, 65: 768, 380: 4544}
+# experts that hold a row at the served B = 4 decode (4 tokens, top-4)
+MOE_SERVED_EXPERTS = 16
 
 
-def check_gemm_experts(dev, flush) -> dict:
-    """The expert entry over 64 experts (the last 4 zero): within 1e-3 of
-    max|plain| of its plain version, bitwise the 2-D entry on each
-    expert's slice, exact zeros for the zero experts, at every C of
-    ``MOE_CS``; then one decode layer's three expert launches at C = 5
-    timed against their plain version and ``torch.bmm`` on the pre-decoded
-    bf16 experts, and the prefill at C = 380."""
-    from repro_torch.core import qtensor
-    from repro_torch.kernels import mixfp4_gemm as G
+def moe_stacks(dev, gen) -> dict:
+    """qwen2-moe's expert stacks of one layer, {(K, N): packed QTensor}:
+    64 experts of seeded random weights, the last 4 zero."""
     from repro_torch.models.base import pack_projections
 
-    gen = torch.Generator(device=dev).manual_seed(11)
     stacks = {}
-    for k, n in set(MOE_LAYER):
+    for k, n in sorted(set(MOE_LAYER)):
         w = torch.randn(MOE_EXPERTS, k, n, device=dev, generator=gen) \
             / math.sqrt(k)
         w[MOE_REAL:] = 0.0
         stacks[(k, n)] = pack_projections({"w_up": w})[0]["w_up"]
         del w
+    return stacks
+
+
+def moe_buffer(k: int, c: int, dev, idx: np.ndarray, seed: int):
+    """The (64, C, K) bf16 capacity buffer that the MoE layer builds for
+    len(idx) seeded random tokens routed to the experts ``idx`` (T, 4),
+    with cap = C - 1 (``models/moe.py dispatch_buffer``)."""
+    from repro_torch.models.moe import dispatch_buffer
+
+    rng = np.random.RandomState(seed)
+    x = torch.tensor(rng.randn(len(idx), k), dtype=torch.float32,
+                     device=dev).to(torch.bfloat16)
+    return dispatch_buffer(x, torch.tensor(idx, device=dev), MOE_REAL,
+                           MOE_EXPERTS, c - 1)[0]
+
+
+def routed_rows(k: int, c: int, dev, seed: int) -> torch.Tensor:
+    """``moe_buffer`` of MOE_TOKENS[c] tokens routed top-4 by seeded random
+    logits; then experts 56-59 are set to: a row non-zero only in K's
+    last split (56), an Inf (57), a NaN (58), and -0.0 everywhere (59)."""
+    rng = np.random.RandomState(seed)
+    t = MOE_TOKENS[c]
+    idx = np.argsort(-rng.rand(t, MOE_REAL), axis=1, kind="stable")
+    buf = moe_buffer(k, c, dev, idx[:, :MOE_TOP_K], seed + 1)
+    last = (k - 1) // 256 * 256
+    buf[56:60] = 0.0
+    buf[56, c - 1, last:] = torch.tensor(rng.randn(k - last), device=dev,
+                                         dtype=torch.float32).to(buf.dtype)
+    buf[57, c - 1, k - 3] = float("inf")
+    buf[58, c - 1, 5] = float("nan")
+    buf[59] = -0.0
+    return buf
+
+
+def served_rows(k: int, dev, seed: int) -> torch.Tensor:
+    """Input (b): the served B = 4 decode dispatch, 4 tokens routed to 16
+    distinct experts of 60 (cap 4, C = 5); every other buffer zero."""
+    rng = np.random.RandomState(seed)
+    idx = rng.permutation(MOE_REAL)[:MOE_SERVED_EXPERTS].reshape(
+        4, MOE_TOP_K)
+    return moe_buffer(k, 5, dev, idx, seed + 1)
+
+
+def moe_layer_bytes(c: int, active: int) -> float:
+    """Bytes one decode layer's three expert launches must move: the packed
+    weights of the ``active`` experts that hold a row, every expert's
+    activations, outputs and scale32."""
+    return sum(active * (k * n / 2 + k * n / 256)
+               + MOE_EXPERTS * (4 + c * k * 2 + c * n * 4)
+               for k, n in MOE_LAYER)
+
+
+def check_gemm_experts(dev, flush) -> dict:
+    """The expert entry over 64 experts (the last 4 zero) at every C of
+    ``MOE_CS``: on dense random rows within 1e-3 of max|plain| of its plain
+    version, bitwise the 2-D entry on each expert's slice, zero experts
+    exact zeros; on the MoE layer's own dispatch buffers (with a -0.0
+    expert, a NaN row, an Inf row and a row non-zero only in the last K
+    split) bitwise the 2-D entry per expert as int32 and +0 for every
+    expert without a non-zero row.  Then one decode layer's three expert
+    launches at C = 5, timed on (a) 64 experts of random rows against the
+    plain version and ``torch.bmm`` on the pre-decoded bf16 experts, and
+    (b) the served dispatch (16 experts hold a row), each beside its byte
+    bound; and the prefill at C = 380."""
+    from repro_torch.core import qtensor
+    from repro_torch.kernels import mixfp4_gemm as G
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    stacks = moe_stacks(dev, gen)
     worst = 0.0
     for (k, n), qw in stacks.items():
         for c in MOE_CS:
@@ -1148,47 +1220,74 @@ def check_gemm_experts(dev, flush) -> dict:
             if not err <= 1e-3:
                 raise AssertionError(f"experts K={k} N={n} C={c}: "
                                      f"normalised error {err}")
-            for e in range(MOE_EXPERTS):
-                two_d = G.mixfp4_gemm_w4a16(x[e], qw.payload[e],
-                                            qw.scales[e], qw.scale32[e])
-                if not torch.equal(y[e], two_d):
-                    raise AssertionError(f"experts K={k} N={n} C={c}: "
-                                         f"expert {e} is not bitwise the "
-                                         "2-D launch")
             if y[MOE_REAL:].any():
                 raise AssertionError(f"experts K={k} N={n} C={c}: a zero "
                                      "expert gave a non-zero output")
+            xr = routed_rows(k, c, dev, 100 + c)
+            yr = qtensor.qmm_experts(xr, qw)
+            live = ((xr.view(torch.int16) & 0x7FFF) != 0).flatten(1).any(1)
+            for e in range(MOE_EXPERTS):
+                for xe, ye in ((x, y), (xr, yr)):
+                    two_d = G.mixfp4_gemm_w4a16(xe[e], qw.payload[e],
+                                                qw.scales[e], qw.scale32[e])
+                    if not torch.equal(ye[e].view(torch.int32),
+                                       two_d.view(torch.int32)):
+                        raise AssertionError(
+                            f"experts K={k} N={n} C={c}: expert {e} is not "
+                            "bitwise the 2-D launch")
+                if not live[e] and yr[e].view(torch.int32).any():
+                    raise AssertionError(f"experts K={k} N={n} C={c}: expert "
+                                         f"{e} has no non-zero row but a "
+                                         "non-+0 output")
+            bad = yr[58, c - 1].isfinite().any() or yr[57, c - 1].isfinite(
+            ).any() or not yr[56, c - 1].any()
+            if bad:
+                raise AssertionError(f"experts K={k} N={n} C={c}: the NaN or "
+                                     "Inf row did not propagate, or the "
+                                     "last-split row was not computed")
     log(f"[w4a16-experts] 64 experts (4 zero) x (K, N) in "
         f"{sorted(stacks)} x C in {MOE_CS}: max error normalised by "
         f"max|plain| {worst:.3e} (tolerance 1e-3); every expert bitwise the "
-        f"2-D launch on its slice; zero experts exact zeros")
+        f"2-D launch on its slice (int32 views), on random rows and on the "
+        f"MoE layer's dispatch buffers with a -0.0 expert, NaN, Inf and "
+        f"last-split-only rows; experts without a non-zero row exact +0")
 
     c = 5
     xs = {k: torch.randn(MOE_EXPERTS, c, k, device=dev,
                          generator=gen).to(torch.bfloat16)
           for k in (2048, 1408)}
+    served = {k: served_rows(k, dev, 21) for k in (2048, 1408)}
     dense = {kn: torch.stack([G.decode_weight_bf16(qw.payload[e],
                                                    qw.scales[e])
                               for e in range(MOE_EXPERTS)])
              for kn, qw in stacks.items()}
 
-    def run(fn):
-        return lambda: [fn(xs[k], (k, n)) for k, n in MOE_LAYER]
+    def run(fn, inputs=xs):
+        return lambda: [fn(inputs[k], (k, n)) for k, n in MOE_LAYER]
 
     kern = run(lambda x, kn: qtensor.qmm_experts(x, stacks[kn]))
+    kern_b = run(lambda x, kn: qtensor.qmm_experts(x, stacks[kn]), served)
     plain = run(lambda x, kn: G.gemm_w4a16_experts_plain(
         x, stacks[kn].payload, stacks[kn].scales, stacks[kn].scale32,
         kn[1]))
     lib = run(lambda x, kn: torch.bmm(x, dense[kn]))
     ms = bench(kern, 20, flush)
     dev_ms = bench(kern, 20, flush, keep_ahead=True)
+    served_ms = bench(kern_b, 20, flush)
+    served_dev_ms = bench(kern_b, 20, flush, keep_ahead=True)
     plain_ms = bench(plain, 3, flush)
     lib_ms = bench(lib, 20, flush)
     lib_dev_ms = bench(lib, 20, flush, keep_ahead=True)
-    n_bytes = sum(MOE_EXPERTS * (k * n / 2 + k * n / 256 + 4 + c * k * 2
-                                 + c * n * 4) for k, n in MOE_LAYER)
+    n_bytes = moe_layer_bytes(c, MOE_EXPERTS)
     n_ops = sum(2 * MOE_EXPERTS * c * k * n for k, n in MOE_LAYER)
     b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+    active = int(((served[2048].view(torch.int16) & 0x7FFF) != 0).flatten(
+        1).any(1).sum())
+    if active != MOE_SERVED_EXPERTS:
+        raise AssertionError(f"input (b) has {active} experts with a row")
+    sb_bytes = moe_layer_bytes(c, active)
+    sb_ms, sb_by = bound(sb_bytes, n_ops * active / MOE_EXPERTS,
+                         BF16_OPS_PER_S)
     cp = MOE_CS[-1]
     for (k, n), qw in sorted(stacks.items()):
         x = torch.randn(MOE_EXPERTS, cp, k, device=dev,
@@ -1197,13 +1296,16 @@ def check_gemm_experts(dev, flush) -> dict:
         flops = 2 * MOE_EXPERTS * cp * k * n
         log(f"[w4a16-experts] prefill C={cp} K={k} N={n}: {t:.3f} ms "
             f"({flops / t / 1e9:.1f} TFLOP/s)")
-    log(f"[w4a16-experts] one decode layer's 3 expert launches (64 experts, "
-        f"C=5): kernel {ms:.4f} ms (card alone {dev_ms:.4f}), plain "
-        f"{plain_ms:.4f} ms, torch.bmm on the decoded bf16 experts "
-        f"{lib_ms:.4f} ms (card alone {lib_dev_ms:.4f}), bound {b_ms:.4f} "
-        f"ms ({b_by}, {n_bytes / 1e6:.1f} MB)")
+    log(f"[w4a16-experts] one decode layer's 3 expert launches (C=5), (a) "
+        f"64 experts of random rows: kernel {ms:.4f} ms (card alone "
+        f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, torch.bmm on the decoded "
+        f"bf16 experts {lib_ms:.4f} ms (card alone {lib_dev_ms:.4f}), bound "
+        f"{b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB); (b) the served B=4 "
+        f"dispatch, {active} experts with a row: kernel {served_ms:.4f} ms "
+        f"(card alone {served_dev_ms:.4f}), bound {sb_ms:.4f} ms ({sb_by}, "
+        f"{sb_bytes / 1e6:.1f} MB)")
     return {"name": "mixfp4_gemm_w4a16_experts", "route": "cuda",
-            "source": "src/repro_torch/csrc/mixfp4_gemm_w4a16.cu",
+            "source": "src/repro_torch/csrc/mixfp4_gemm_experts.cuh",
             "replaces": "src/repro/kernels/mixfp4_gemm.py:300",
             "max_abs_err": worst, "tolerance": "1e-3 of max|plain|; "
             "bitwise the 2-D launch per expert",
@@ -1211,7 +1313,11 @@ def check_gemm_experts(dev, flush) -> dict:
                      "experts, C=5",
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms, "device_ms": dev_ms,
-            "library_device_ms": lib_dev_ms}
+            "library_device_ms": lib_dev_ms,
+            "served_shape": "the same at the served B=4 dispatch, 16 of 64 "
+                            "experts with a row",
+            "served_ms": served_ms, "served_device_ms": served_dev_ms,
+            "served_bound_ms": sb_ms}
 
 
 def check_moe_heads(dev, flush):
@@ -1531,17 +1637,22 @@ def profile_decode(engine, seed: int, tag: str):
         ev.name for ev in prof.events() for kern in ev.kernels
         if "memset" in kern.name.lower())
     trace_rows = {k: sum(c for key, c in rows.items() if k in key)
-                  for k in ("w4a16_", "true>", "w4a4_", "attn_decode_kernel",
+                  for k in ("w4a16_", "experts_decode", "w4a4_",
+                            "attn_decode_kernel",
                             "quant_rows_kernel", "quant_kv_kernel",
                             "fwht_rows_kernel", "fwht_row_scale_kernel")}
     launches = sum(rows.values()) / steps
     log(f"[profile] {tag} launches in the window: wrappers {wrapped}; "
-        f"trace rows {trace_rows} ('true>': the expert GEMM's "
-        f"instantiations); device launches per decode step "
+        f"trace rows {trace_rows} ('experts_decode': the expert GEMM's "
+        f"decode kernel); device launches per decode step "
         f"{launches:.1f} (every kernel, memset and copy row)")
-    if n_gemm != want or not all("_decode_kernel" in key for key in gemm):
+    want_experts = (3 if engine.cfg.n_experts else 0) * \
+        engine.cfg.n_layers * steps
+    if n_gemm != want or not all("_decode_kernel" in key for key in gemm) \
+            or trace_rows["experts_decode"] != want_experts:
         raise AssertionError(f"{tag} traced GEMM rows {gemm} ({n_gemm}, "
-                             f"expected {want} decode-variant launches)")
+                             f"expected {want} decode-variant launches, "
+                             f"{want_experts} of them the expert kernel)")
     if not set(memsets) <= STEP_MEMSET_OPS:
         raise AssertionError(f"{tag} memsets by {dict(memsets)}: only the "
                              f"step's {sorted(STEP_MEMSET_OPS)} may launch "
@@ -1555,7 +1666,7 @@ def profile_decode(engine, seed: int, tag: str):
         f"launching operator {dict(memsets)}")
     if engine.cfg.n_experts:
         experts = sum(ms for name, (ms, _) in by_kernel.items()
-                      if "w4a16" in name and "true>" in name)
+                      if "experts_decode_kernel" in name)
         log(f"[profile] {tag} expert GEMM device time {experts:.4f} "
             f"ms/step ({3 * engine.cfg.n_layers} launches), the rest "
             f"{busy / steps - experts:.4f} ms/step")

@@ -1,6 +1,6 @@
 """Decode-step studies of the PyTorch/CUDA port on one GPU.
 
-Five commands, each for one CUDA device:
+Seven commands, each for one CUDA device:
 
 ``ab --parent DIR [--rounds R]``
     Parent against change in alternating turns (parent, change, change,
@@ -43,6 +43,25 @@ Five commands, each for one CUDA device:
     beside the plan ``kernels/tuning.py`` picks: the measurement that
     plan rests on.
 
+``experts-sweep``
+    Device time of one qwen2-moe decode layer's three expert launches
+    (``mixfp4_gemm_w4a16_experts``, the weights of ``chip_smoke.py`` phase
+    2m) for every plan of the expert decode kernel (``tuning.expert_plans``:
+    column tile 64 or 128 x a ring of 2 to 4 slots) on (a) 64 experts of random rows at C = 5,
+    (b) the served B = 4 dispatch (16 experts hold a row, C = 5), and (a)'s
+    rows at C = 16 and 64, from ``torch.profiler``'s kernel rows with the L2
+    flushed before each layer, beside the plan ``tuning.expert_plan``
+    picks: the measurement that plan rests on.  Every plan's output must
+    be bitwise the picked plan's.
+
+``experts-ab --parent DIR [--rounds R]``
+    Parent against change in alternating turns (parent, change, change,
+    parent, R times over), each turn a fresh process: one qwen2-moe decode
+    layer's three expert launches (``qtensor.qmm_experts``, the weights of
+    ``chip_smoke.py`` phase 2m), card alone (``chip_smoke.bench`` with the
+    host kept ahead, L2 flushed), on (a) 64 experts of random rows at C = 5
+    and (b) the served B = 4 dispatch (16 experts hold a row).
+
 ``trace-clock [--windows N]``
     Traces N windows of one decode-M GEMM call each (W4A16, then fused
     W4A4 + RHT, alternately), every window after a warm-up call, in two
@@ -57,6 +76,8 @@ Five commands, each for one CUDA device:
   python3 decode_study.py trace-clock --windows 200
   python3 decode_study.py attn-sweep
   python3 decode_study.py rowscale-sweep
+  python3 decode_study.py experts-sweep
+  python3 decode_study.py experts-ab --parent build/parent --rounds 2
 """
 from __future__ import annotations
 
@@ -499,6 +520,133 @@ def rowscale_sweep(seed: int, calls: int = 10):
                 f"{us.get((plan.ctas, plan.threads), float('nan')):.2f}")
 
 
+def experts_sweep(seed: int, calls: int = 10):
+    """Device us of one decode layer's three expert launches per plan of
+    the expert decode kernel, on the inputs of the module docstring; one
+    line per input with every plan's time, the fastest and tuning's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _import_tree(ROOT)
+    import chip_smoke as cs
+    from repro_torch.kernels import mixfp4_gemm as G
+    from repro_torch.kernels import tuning
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    stacks = cs.moe_stacks(dev, gen)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+
+    def rows(c):
+        return {k: torch.randn(cs.MOE_EXPERTS, c, k, device=dev,
+                               generator=gen).to(torch.bfloat16)
+                for k in (2048, 1408)}
+
+    inputs = {"(a) 64 experts of random rows, C=5": rows(5),
+              "(b) the served B=4 dispatch, 16 experts, C=5": {
+                  k: cs.served_rows(k, dev, seed + 21) for k in (2048, 1408)},
+              "(a) C=16": rows(16), "(a) C=64": rows(64)}
+    for label, xs in inputs.items():
+        c = xs[2048].shape[1]
+        picked = {k: tuning.expert_plan(c, k, n) for k, n in cs.MOE_LAYER}
+
+        def layer(plans):
+            return [G._experts_launch(xs[k], stacks[k, n].payload,
+                                      stacks[k, n].scales,
+                                      stacks[k, n].scale32, n, plans[k])
+                    for k, n in cs.MOE_LAYER]
+
+        want = layer(picked)
+        us = {}
+        for plan in tuning.expert_plans(c, 2048):
+            plans = {k: plan for k, _ in cs.MOE_LAYER}
+            got = layer(plans)
+            if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(got, want)):
+                raise AssertionError(f"{label}: plan {plan} is not bitwise "
+                                     "the picked plan's")
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                time.sleep(0.05)
+                for _ in range(calls):
+                    flush.zero_()
+                    layer(plans)
+                torch.cuda.synchronize()
+            found = [ev for ev in _device_rows(prof)
+                     if "experts_decode_kernel" in ev.key]
+            n = sum(ev.count for ev in found)
+            us[tuple(plan)] = sum(ev.self_device_time_total
+                                  for ev in found) / calls
+            if n != 3 * calls:
+                log(f"[experts-sweep] {label} {tuple(plan)}: {n} of "
+                    f"{3 * calls} kernel rows traced")
+        best = min(us, key=us.get)
+        mine = sorted({tuple(p) for p in picked.values()})
+        log(f"[experts-sweep] {label}: us per layer (3 launches) by (column "
+            f"tile, threads, ring slots) " + ", ".join(
+                f"{plan} {v:.2f}" for plan, v in us.items())
+            + f"; fastest {best} {us[best]:.2f}; tuning picks {mine} "
+            f"{us.get(mine[0], float('nan')) if len(mine) == 1 else 'mixed'}")
+
+
+def experts_turn(tree: Path, seed: int) -> dict:
+    """One turn of ``experts-ab``: the expert layer's card-alone ms on
+    inputs (a) and (b) with ``tree``'s kernels.  The inputs are built here
+    (``_dispatch_indices``, as the MoE layer dispatches), so both trees
+    get the same bytes."""
+    _import_tree(tree)
+    import chip_smoke as cs
+    from repro_torch.core import qtensor
+    from repro_torch.models import moe
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    stacks = cs.moe_stacks(dev, gen)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rng = np.random.RandomState(seed + 21)
+    idx = torch.tensor(rng.permutation(cs.MOE_REAL)[:cs.MOE_SERVED_EXPERTS]
+                       .reshape(4, cs.MOE_TOP_K), device=dev)
+    tok_s, e_s, slot, keep, _ = moe._dispatch_indices(idx, cs.MOE_REAL, 4)
+    inputs = {"a": {}, "b": {}}
+    for k in (2048, 1408):
+        inputs["a"][k] = torch.randn(cs.MOE_EXPERTS, 5, k, device=dev,
+                                     generator=gen).to(torch.bfloat16)
+        x = torch.tensor(rng.randn(4, k), dtype=torch.float32,
+                         device=dev).to(torch.bfloat16)
+        buf = torch.zeros((cs.MOE_EXPERTS, 5, k), dtype=torch.bfloat16,
+                          device=dev)
+        buf[e_s, slot] = torch.where(keep[:, None], x[tok_s], 0.0)
+        inputs["b"][k] = buf
+    out = {"tree": str(tree)}
+    for name, xs in inputs.items():
+        out[f"{name}_ms"] = cs.bench(
+            lambda: [qtensor.qmm_experts(xs[k], stacks[k, n])
+                     for k, n in cs.MOE_LAYER], 20, flush, keep_ahead=True)
+    return out
+
+
+def experts_ab(parent: Path, rounds: int, seed: int):
+    """Alternating turns of :func:`experts_turn`, parent and change."""
+    turns = []
+    for _ in range(rounds):
+        for tree in (parent, ROOT, ROOT, parent):
+            res = subprocess.run(
+                [sys.executable, str(ROOT / "decode_study.py"),
+                 "experts-turn", "--tree", str(tree.resolve()), "--seed",
+                 str(seed)], capture_output=True, text=True, check=True)
+            turn = json.loads(res.stdout.strip().splitlines()[-1])
+            log(json.dumps(turn))
+            turns.append(turn)
+    for name, tree in (("parent", parent.resolve()), ("change", ROOT)):
+        mine = [t for t in turns if Path(t["tree"]) == tree]
+        log(f"[experts-ab] {name}: one layer's 3 expert launches, card "
+            f"alone, median of {len(mine)} turns: (a) "
+            f"{statistics.median(t['a_ms'] for t in mine):.4f} ms, (b) "
+            f"{statistics.median(t['b_ms'] for t in mine):.4f} ms; turns "
+            f"(a) {[round(t['a_ms'], 4) for t in mine]}, (b) "
+            f"{[round(t['b_ms'], 4) for t in mine]}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -513,6 +661,12 @@ def main():
     p.add_argument("--windows", type=int, default=24)
     sub.add_parser("attn-sweep")
     sub.add_parser("rowscale-sweep")
+    sub.add_parser("experts-sweep")
+    p = sub.add_parser("experts-ab")
+    p.add_argument("--parent", type=Path, required=True)
+    p.add_argument("--rounds", type=int, default=2)
+    p = sub.add_parser("experts-turn")
+    p.add_argument("--tree", type=Path, required=True)
     p = sub.add_parser("trace-clock")
     p.add_argument("--windows", type=int, default=200)
     p.add_argument("--pad", type=float, default=0.05)
@@ -534,6 +688,12 @@ def main():
         attn_sweep(args.seed)
     elif args.cmd == "rowscale-sweep":
         rowscale_sweep(args.seed)
+    elif args.cmd == "experts-sweep":
+        experts_sweep(args.seed)
+    elif args.cmd == "experts-ab":
+        experts_ab(args.parent, args.rounds, args.seed)
+    elif args.cmd == "experts-turn":
+        print(json.dumps(experts_turn(args.tree, args.seed)))
     elif args.cmd == "trace-clock":
         trace_clock(args.windows, args.pad, args.seed)
     else:

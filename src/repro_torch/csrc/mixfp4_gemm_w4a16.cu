@@ -25,18 +25,22 @@
 // weight is never expanded in device memory.  wgmma and TMA at prefill M
 // are later work.
 //
-// Experts: the same two kernels with the expert as the grid's z axis
-// (EXPERTS = true).  Each CTA moves its operand pointers to its expert's
-// slice (contiguous (E, ...) stacks) and its own slice of the decode
-// workspace and counters, then runs the 2-D code unchanged, so every
-// expert's rows are bitwise the 2-D entry's on that expert and stay
-// independent of C.  At decode C (a few rows per expert) the launch reads
-// every stored expert's weight bytes once: bytes bound, like a 2-D
-// decode GEMM E times as large.
+// Experts: at C <= 64 rows per expert, a kernel of its own
+// (mixfp4_gemm_experts.cuh): one CTA per (expert, column tile) walks every
+// K split of its tile through a ring of cp.async slots, adds the partials in
+// split order itself, and skips the splits whose activations are all zero
+// without reading their weight bytes, so an expert that received no token
+// costs its activation reads.
+// Above 64 rows, the prefill kernel with the expert as the grid's z axis
+// (EXPERTS = true): each CTA moves its operand pointers to its expert's
+// slice (contiguous (E, ...) stacks) and runs the 2-D code unchanged.
+// Either way every expert's rows are bitwise the 2-D entry's on that
+// expert and stay independent of C.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "mixfp4_gemm_experts.cuh"
 #include "mixfp4_gemm_tile.cuh"
 
 namespace {
@@ -95,18 +99,13 @@ __global__ void __launch_bounds__(128) w4a16_kernel(
   store_tile(y, part, s32, 0, m0, n0, m, n, warp, lane);
 }
 
-template <int MT, bool EXPERTS>
+template <int MT>
 __global__ void __launch_bounds__(DTHREADS) w4a16_decode_kernel(
     const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ wp,
     const uint8_t* __restrict__ ws, const float* __restrict__ s32,
     float* __restrict__ y, float* __restrict__ work,
     int* __restrict__ counters, int m, int k, int nw, int n, int np,
     int split_k) {
-  if constexpr (EXPERTS) {
-    MIXFP4_EXPERT_SLICES();
-    work += static_cast<size_t>(blockIdx.z) * gridDim.y * m * np;
-    counters += blockIdx.z * gridDim.x;
-  }
   extern __shared__ __align__(16) uint8_t smem[];
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * DBN, split = blockIdx.y;
@@ -133,33 +132,42 @@ __global__ void __launch_bounds__(DTHREADS) w4a16_decode_kernel(
                gridDim.y, tid);
 }
 
-template <bool EXPERTS>
-int launch(const void* x, const uint8_t* payload, const uint8_t* scales,
-           const float* s32, float* y, int experts, int m, int k, int nw,
-           int n, int split_k, int decode, float* work, int* counters,
-           void* stream) {
-  if (experts == 0 || m == 0 || n == 0) return 0;
-  if (const int err = check_plan(m, split_k, decode)) return err;
-  if (experts < 0 || experts > 65535)
+// the expert decode kernel for R 8-row tiles and a 64- or 128-column tile
+template <int R>
+auto experts_kernel(int tile_n) {
+  return tile_n == 64 ? w4a16_experts_decode_kernel<R, 4>
+                      : w4a16_experts_decode_kernel<R, 8>;
+}
+
+int launch_experts_decode(const __nv_bfloat16* x, const uint8_t* payload,
+                          const uint8_t* scales, const float* s32, float* y,
+                          int experts, int m, int k, int nw, int n,
+                          int split_k, int tile_n, int threads, int stages,
+                          cudaStream_t st) {
+  if ((tile_n != 64 && tile_n != 128) || threads != 2 * tile_n ||
+      stages < EXPERT_MIN_STAGES || stages > EXPERT_MAX_STAGES)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  if (decode) {
-    const int tiles = (n + DBN - 1) / DBN;
-    const dim3 grid(tiles, (k + split_k - 1) / split_k, experts);
-    const size_t smem = decode_smem_bytes(m, split_k);
-    const int mt = decode_mtiles(m);
-    auto kernel = mt == 1 ? w4a16_decode_kernel<1, EXPERTS>
-                          : (mt == 2 ? w4a16_decode_kernel<2, EXPERTS>
-                                     : w4a16_decode_kernel<4, EXPERTS>);
-    kernel<<<grid, DTHREADS, smem, st>>>(xb, payload, scales, s32, y, work,
-                                         counters, m, k, nw, n, tiles * DBN,
-                                         split_k);
-  } else {
-    const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, experts);
-    w4a16_kernel<EXPERTS><<<grid, 128, 0, st>>>(xb, payload, scales, s32, y,
-                                                m, k, nw, n, split_k);
+  const size_t smem = expert_smem_bytes(m, k, split_k, tile_n / 16, stages);
+  if (smem > static_cast<size_t>(EXPERT_SMEM_LIMIT))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rt = m <= 8 ? 0 : (m <= 16 ? 1 : (m <= 32 ? 2 : 3));
+  auto kernel = rt == 0 ? experts_kernel<1>(tile_n)
+                : rt == 1 ? experts_kernel<2>(tile_n)
+                : rt == 2 ? experts_kernel<4>(tile_n)
+                          : experts_kernel<8>(tile_n);
+  // the largest dynamic shared memory each instantiation has been allowed
+  static int allowed[4][2] = {};
+  int& cur = allowed[rt][tile_n == 128];
+  if (smem > 48 * 1024 && static_cast<int>(smem) > cur) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cur = static_cast<int>(smem);
   }
+  const dim3 grid((n + tile_n - 1) / tile_n, experts);
+  kernel<<<grid, threads, smem, st>>>(x, payload, scales, s32, y, m, k, nw,
+                                      n, split_k, stages);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -177,21 +185,54 @@ extern "C" int mixfp4_gemm_w4a16(const void* x, const uint8_t* payload,
                                  float* y, int m, int k, int nw, int n,
                                  int split_k, int decode, float* work,
                                  int* counters, void* stream) {
-  return launch<false>(x, payload, scales, s32, y, 1, m, k, nw, n, split_k,
-                       decode, work, counters, stream);
+  if (m == 0 || n == 0) return 0;
+  if (const int err = check_plan(m, split_k, decode)) return err;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  if (decode) {
+    const int tiles = (n + DBN - 1) / DBN;
+    const dim3 grid(tiles, (k + split_k - 1) / split_k);
+    const size_t smem = decode_smem_bytes(m, split_k);
+    const int mt = decode_mtiles(m);
+    auto kernel = mt == 1 ? w4a16_decode_kernel<1>
+                          : (mt == 2 ? w4a16_decode_kernel<2>
+                                     : w4a16_decode_kernel<4>);
+    kernel<<<grid, DTHREADS, smem, st>>>(xb, payload, scales, s32, y, work,
+                                         counters, m, k, nw, n, tiles * DBN,
+                                         split_k);
+  } else {
+    const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
+    w4a16_kernel<false><<<grid, 128, 0, st>>>(xb, payload, scales, s32, y,
+                                              m, k, nw, n, split_k);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The same over E = experts stacked operands: x (E, M, K), payload (E,
 // K/2, NW), scales (E, K/16, NW/16), s32 (E,), y (E, M, N), all
-// contiguous; the decode variant's work is (E, splits, M, NP) and its
-// counters (E, column tiles), zero before the first launch and left zero.
+// contiguous.  The decode variant (M <= 64) takes its plan from
+// kernels/tuning.py expert_plan: tile_n columns per CTA (64 or 128),
+// threads = 2 * tile_n (a warp per 16-column scale block), stages ring
+// slots (2 to 4); it needs no workspace.  The prefill variant ignores the
+// three.
 extern "C" int mixfp4_gemm_w4a16_experts(const void* x, const uint8_t* payload,
                                          const uint8_t* scales,
                                          const float* s32, float* y,
                                          int experts, int m, int k, int nw,
                                          int n, int split_k, int decode,
-                                         float* work, int* counters,
+                                         int tile_n, int threads, int stages,
                                          void* stream) {
-  return launch<true>(x, payload, scales, s32, y, experts, m, k, nw, n,
-                      split_k, decode, work, counters, stream);
+  if (experts == 0 || m == 0 || n == 0) return 0;
+  if (const int err = check_plan(m, split_k, decode)) return err;
+  if (experts < 0 || experts > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  if (decode)
+    return launch_experts_decode(xb, payload, scales, s32, y, experts, m, k,
+                                 nw, n, split_k, tile_n, threads, stages, st);
+  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, experts);
+  w4a16_kernel<true><<<grid, 128, 0, st>>>(xb, payload, scales, s32, y, m, k,
+                                           nw, n, split_k);
+  return static_cast<int>(cudaGetLastError());
 }

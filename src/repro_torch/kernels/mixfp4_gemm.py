@@ -28,9 +28,16 @@ partials inside the one launch, through an f32 workspace and one counter
 per column tile, both allocated once per device (the counters zeroed
 then and left zero by every launch) and reused by every launch, so the
 GEMMs of one device must run on one stream, as the port's do.  The
-expert entry runs the same kernels with the expert as the grid's third
-axis and takes one slice of workspace and counters per expert, so each
-expert's rows are bitwise the 2-D entry's on that expert's slice.
+expert entry at C <= 64 rows per expert has a kernel of its own
+(``csrc/mixfp4_gemm_experts.cuh``): one CTA per (expert, column tile)
+walks the K splits of its tile in order and adds them in a sum it holds
+itself, so it needs no workspace; a split whose activations are all
++-0 is skipped without reading its weight bytes
+(:func:`gemm_w4a16_experts_walk` is that walk in plain PyTorch).  Its
+column tile, threads and ring depth come from ``tuning.expert_plan``.
+Above 64 rows it runs the prefill kernel with the expert as the grid's
+third axis.  Either way each expert's rows are bitwise the 2-D entry's on
+that expert's slice.
 """
 from __future__ import annotations
 
@@ -45,6 +52,7 @@ from repro_torch.kernels.mixfp4_quant import quant_block_math
 __all__ = ["mixfp4_gemm_w4a16", "mixfp4_gemm_w4a16_experts",
            "mixfp4_gemm_w4a4", "mixfp4_gemm_w4a4_fused",
            "gemm_w4a16_plain", "gemm_w4a16_experts_plain",
+           "gemm_w4a16_experts_walk",
            "gemm_w4a4_plain", "gemm_w4a4_fused_plain",
            "decode_weight_bf16", "decode_act_bf16", "combined_scale",
            "launches", "launches_experts",
@@ -120,6 +128,31 @@ def gemm_w4a16_experts_plain(x: torch.Tensor, payload: torch.Tensor,
                         for e in range(x.shape[0])])
 
 
+def gemm_w4a16_experts_walk(x: torch.Tensor, payload: torch.Tensor,
+                            scales: torch.Tensor, scale32: torch.Tensor,
+                            n_out: int, skip: bool = True) -> torch.Tensor:
+    """The expert decode kernel's walk in plain PyTorch, for tests: per
+    expert, each K split (``tuning.SPLIT_K`` deep, the last ending at K)
+    summed from zero in f32 and added in split order to a zero sum, a split
+    whose bf16 activations are all +-0 skipped (NaN and Inf count as
+    non-zero; ``skip=False`` computes every split), the sum times scale32.
+    Same function as :func:`gemm_w4a16_experts_plain`, up to the order of
+    the f32 sums."""
+    e, c, k = x.shape
+    xb = x.to(torch.bfloat16)
+    live = (xb.view(torch.int16) & 0x7FFF) != 0
+    a = xb.to(torch.float32)
+    w = torch.stack([decode_weight_bf16(payload[i], scales[i])[:, :n_out]
+                     for i in range(e)]).to(torch.float32)
+    acc = torch.zeros((e, c, n_out), dtype=torch.float32, device=x.device)
+    for ks0 in range(0, k, tuning.SPLIT_K):
+        sl = slice(ks0, min(ks0 + tuning.SPLIT_K, k))
+        part = torch.bmm(a[:, :, sl], w[:, sl])
+        take = live[:, :, sl].flatten(1).any(1) | (not skip)
+        acc = torch.where(take[:, None, None], acc + part, acc)
+    return acc * scale32.to(torch.float32).reshape(e, 1, 1)
+
+
 def gemm_w4a4_plain(x_payload: torch.Tensor, x_scales: torch.Tensor,
                     out_s32: torch.Tensor, payload: torch.Tensor,
                     scales: torch.Tensor, n_out: int) -> torch.Tensor:
@@ -189,19 +222,18 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 _SCRATCH: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def _plan(m: int, k: int, n: int, device: torch.device,
-          experts: int = 1) -> tuple:
-    """The C launchers' plan arguments: split_k, decode, and the decode
-    variant's workspace and counters (None for the prefill variant), one
-    slice of each per expert."""
+def _plan(m: int, k: int, n: int, device: torch.device) -> tuple:
+    """The 2-D and W4A4 launchers' plan arguments: split_k, decode, and the
+    decode variant's workspace and counters (None for the prefill
+    variant)."""
     plan = tuning.select(m, k)
     if not plan.decode:
         return plan.split_k, 0, None, None
     tiles = -(-n // tuning.BN)
-    need = experts * plan.splits * m * tiles * tuning.BN
+    need = plan.splits * m * tiles * tuning.BN
     counters, work = _SCRATCH.get(device) or (None, None)
-    if counters is None or counters.numel() < experts * tiles:
-        counters = torch.zeros(max(experts * tiles, 4096), dtype=torch.int32,
+    if counters is None or counters.numel() < tiles:
+        counters = torch.zeros(max(tiles, 4096), dtype=torch.int32,
                                device=device)
     if work is None or work.numel() < need:
         work = torch.empty(need, dtype=torch.float32, device=device)
@@ -257,7 +289,6 @@ def mixfp4_gemm_w4a16_experts(x: torch.Tensor, payload: torch.Tensor,
     (E, C, n_out) f32, expert e's rows bitwise :func:`mixfp4_gemm_w4a16`
     on its slice.  CUDA tensors launch the kernel; CPU tensors take the
     plain version."""
-    global launches_experts
     if x.ndim != 3 or payload.ndim != 3 or scales.ndim != 3:
         raise ValueError(f"x {tuple(x.shape)}, payload "
                          f"{tuple(payload.shape)} and scales "
@@ -273,14 +304,28 @@ def mixfp4_gemm_w4a16_experts(x: torch.Tensor, payload: torch.Tensor,
     if x.device.type == "cpu":
         return gemm_w4a16_experts_plain(x, payload, scales, s32, n_out)
     _on_card(x.device, ("payload", payload), ("scales", scales))
-    xb = _aligned(x.to(torch.bfloat16))
+    return _experts_launch(x, payload, scales, s32, n_out)
+
+
+def _experts_launch(x: torch.Tensor, payload: torch.Tensor,
+                    scales: torch.Tensor, s32: torch.Tensor, n_out: int,
+                    plan: tuning.ExpertPlan | None = None) -> torch.Tensor:
+    """Launch the expert entry on checked card operands; the decode variant
+    with ``plan`` (``tuning.expert_plan``'s when None; ``decode_study.py
+    experts-sweep`` passes others)."""
+    global launches_experts
+    e, c, k = x.shape
+    xb = _aligned(x.to(torch.bfloat16))   # one RNE rounding, as the 2-D entry
     s32 = s32.contiguous()
     payload = _aligned(payload)
     y = torch.empty((e, c, n_out), dtype=torch.float32, device=x.device)
-    plan = _plan(c, k, n_out, x.device, experts=e)
+    gemm = tuning.select(c, k)
+    if gemm.decode and plan is None:
+        plan = tuning.expert_plan(c, k, n_out)
     err = _fn("mixfp4_gemm_w4a16", "mixfp4_gemm_w4a16_experts")(
         xb.data_ptr(), payload.data_ptr(), scales.data_ptr(), s32.data_ptr(),
-        y.data_ptr(), e, c, k, payload.shape[2], n_out, *plan,
+        y.data_ptr(), e, c, k, payload.shape[2], n_out, gemm.split_k,
+        int(gemm.decode), *(plan if gemm.decode else (0, 0, 0)),
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"mixfp4_gemm_w4a16_experts launch failed: "
@@ -380,8 +425,8 @@ _ARGTYPES = {
     # C function -> ctypes argument types
     "mixfp4_gemm_w4a16": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
     + _PLAN_ARGS + [ctypes.c_void_p],
-    "mixfp4_gemm_w4a16_experts": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-    + _PLAN_ARGS + [ctypes.c_void_p],
+    "mixfp4_gemm_w4a16_experts": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+    + [ctypes.c_void_p],
     "mixfp4_gemm_w4a4": [ctypes.c_void_p] * 3 + [ctypes.c_int]
     + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + _PLAN_ARGS
     + [ctypes.c_void_p],

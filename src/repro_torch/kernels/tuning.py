@@ -35,6 +35,13 @@ and take part in the merge.  Both depend on key positions alone, so a
 sequence's output is bitwise independent of its batchmates, of B and of
 the cache's capacity, and the paged entry equals the fixed one.
 
+The expert stack's decode variant (``csrc/mixfp4_gemm_experts.cuh``,
+C <= :data:`DECODE_MAX_M` rows per expert) runs one CTA per (expert,
+column tile) that walks every K split of its tile through a ring of
+cp.async stages; :func:`expert_plan` gives it the column tile, the threads
+per CTA and the ring's depth, from (C, K, N) alone.  The splits stay
+:func:`select`'s, so each expert's rows are bitwise the 2-D entry's.
+
 The RHT row scale (``fwht_row_scale`` in ``csrc/fwht_rows.cu``) reduces
 each row in one launch; :func:`row_scale_plan` gives the CTAs per row
 (one thread-block cluster) and the threads per CTA.  At M <= 16 a long
@@ -49,7 +56,8 @@ from typing import NamedTuple
 
 __all__ = ["GemmPlan", "select", "SPLIT_K", "DECODE_MAX_M", "BN",
            "AttnPlan", "attn_splits", "attn_split_range", "SPLIT_S",
-           "RowScalePlan", "row_scale_plan"]
+           "RowScalePlan", "row_scale_plan", "ExpertPlan", "expert_plan",
+           "expert_smem_bytes", "expert_plans"]
 
 #: K split depth: 9 splits at K = 2304, 36 at K = 9216.  A multiple of the
 #: prefill tile's 32-deep slab and at most ``MAX_SPLIT_K`` of the C side.
@@ -145,3 +153,58 @@ def row_scale_plan(m: int, k: int) -> RowScalePlan:
     while threads < min(per_cta, ROW_SCALE_MAX_THREADS):
         threads *= 2
     return RowScalePlan(ctas, threads)
+
+
+class ExpertPlan(NamedTuple):
+    """What the expert wrapper passes to the C launcher's decode variant."""
+
+    tile_n: int    # columns per CTA: 16 per warp (one scale block each)
+    threads: int   # threads per CTA: 2 * tile_n
+    stages: int    # ring slots, each one K split's payload and activations
+
+
+#: the column tiles and ring depths the C launcher takes
+EXPERT_TILES = (64, 128)
+EXPERT_MIN_STAGES, EXPERT_MAX_STAGES = 2, 4
+#: dynamic shared memory a CTA can use on sm_90 (``EXPERT_SMEM_LIMIT``)
+EXPERT_SMEM_LIMIT = 232448
+#: the largest C that takes the 64-column tile (``decode_study.py
+#: experts-sweep``: 64 columns fastest at C = 5, 128 at C = 16 and 64)
+EXPERT_NARROW_MAX_C = 8
+
+
+def expert_smem_bytes(c: int, k: int, tile_n: int, stages: int) -> int:
+    """The decode CTA's dynamic shared memory (``expert_smem_bytes`` in the
+    C header): ``stages`` ring slots of one split's payload rows (tile_n +
+    16 bytes each) and C activation rows (SPLIT_K + 8 bf16), the scale
+    table, the split flags and the work list."""
+    splits = -(-k // SPLIT_K)
+    stage = SPLIT_K // 2 * (tile_n + 16) + c * (SPLIT_K + 8) * 2
+    return (stages * stage + splits * (SPLIT_K // 16) * (tile_n // 16) * 4
+            + (2 * splits + 1) * 4)
+
+
+def expert_plans(c: int, k: int) -> list[ExpertPlan]:
+    """Every plan the C launcher takes at (C, K): each column tile with a
+    ring of 2 to 4 slots, within a CTA's shared memory."""
+    return [ExpertPlan(tile, 2 * tile, st) for tile in EXPERT_TILES
+            for st in range(EXPERT_MIN_STAGES, EXPERT_MAX_STAGES + 1)
+            if expert_smem_bytes(c, k, tile, st) <= EXPERT_SMEM_LIMIT]
+
+
+def expert_plan(c: int, k: int, n: int) -> ExpertPlan:
+    """The plan of the expert stack's decode variant for C rows per expert
+    and a (K, N) projection: a 64-column tile up to C = 8 (every weight of
+    a qwen2-moe projection over 22 or 32 tiles, so the 16 experts with a
+    row at the served decode give 352 or 512 CTAs that carry weights), 128
+    columns above (half the activation reads per weight byte), and a ring
+    of 2 slots: the next split lands while the current one is multiplied.
+    These are the fastest plans of ``decode_study.py experts-sweep`` at C
+    = 5 (64 experts of random rows), 16 and 64 (``PERF.md`` §6); deeper
+    rings hold more shared memory, so fewer CTAs share an SM, and were
+    slower at every C measured."""
+    if not 0 <= c <= DECODE_MAX_M or k <= 0 or k % 16 or n < 0:
+        raise ValueError(f"C={c}, K={k}, N={n}: expected C <= "
+                         f"{DECODE_MAX_M} and K a positive multiple of 16")
+    tile_n = 64 if c <= EXPERT_NARROW_MAX_C else 128
+    return ExpertPlan(tile_n, 2 * tile_n, EXPERT_MIN_STAGES)

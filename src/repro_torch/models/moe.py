@@ -31,7 +31,7 @@ from repro_torch.core import qtensor
 from repro_torch.models import base
 from repro_torch.models.base import ArchConfig
 
-__all__ = ["stored_experts", "moe_init", "moe_apply"]
+__all__ = ["stored_experts", "moe_init", "moe_apply", "dispatch_buffer"]
 
 
 def stored_experts(cfg: ArchConfig) -> int:
@@ -108,6 +108,21 @@ def _dispatch_indices(idx: torch.Tensor, e: int, cap: int):
     return tok_s, e_s, slot, keep, order
 
 
+def dispatch_buffer(x: torch.Tensor, idx: torch.Tensor, n_experts: int,
+                    e_store: int, cap: int):
+    """The (e_store, cap + 1, D) capacity buffer of tokens x (T, D) routed
+    to experts idx (T, k), and the dispatch indices.  A dropped choice
+    writes zeros into its expert's discard row ``cap``, so every write
+    there carries the same bytes; experts that received no choice keep
+    zero rows."""
+    ind = _dispatch_indices(idx, n_experts, cap)
+    tok_s, e_s, slot, keep, _ = ind
+    buf = torch.zeros((e_store, cap + 1, x.shape[1]), dtype=x.dtype,
+                      device=x.device)
+    buf[e_s, slot] = torch.where(keep[:, None], x[tok_s], 0.0)
+    return buf, ind
+
+
 def _expert_ffn(p: dict, buf: torch.Tensor) -> torch.Tensor:
     """Every stored expert's SwiGLU FFN over its (C, D) buffer rows, each
     projection one launch for the whole stack; bf16 between projections
@@ -128,12 +143,8 @@ def _moe_local(x: torch.Tensor, gates: torch.Tensor, idx: torch.Tensor,
     e_store = p["w_up"].payload.shape[0]
     cap = max(int(math.ceil(t * cfg.top_k * cfg.capacity_factor
                             / cfg.n_experts)), 4)
-    tok_s, e_s, slot, keep, order = _dispatch_indices(idx, cfg.n_experts,
-                                                      cap)
-    buf = torch.zeros((e_store, cap + 1, d), dtype=x.dtype, device=x.device)
-    # a dropped choice writes zeros into its expert's discard row, so
-    # every write there carries the same bytes
-    buf[e_s, slot] = torch.where(keep[:, None], x[tok_s], 0.0)
+    buf, (tok_s, e_s, slot, keep, order) = dispatch_buffer(
+        x, idx, cfg.n_experts, e_store, cap)
     back = _expert_ffn(p, buf)
     gate_f = gates.reshape(-1)[order]
     per_choice = back[e_s, slot] * (gate_f * keep).to(x.dtype)[:, None]

@@ -18,8 +18,11 @@ kernel bitwise equal to the fixed-slot one on the gathered rows, and a
 sequence's attention output bitwise independent of B and of the cache's
 capacity (the key splits come from key positions alone).  The expert
 W4A16 entry (one launch for a stack of experts) bitwise the 2-D entry on
-each expert's slice, within 1e-3 of max|plain| of its plain version, exact
-zeros for zero (dummy) experts; an MoE decode step bitwise equal to itself
+each expert's slice (int32 views, so signed zeros count), within 1e-3 of
+max|plain| of its plain version, exact zeros for zero (dummy) experts, on
+random rows and on the MoE layer's dispatch buffers with -0.0, NaN, Inf
+and last-split-only rows (experts without a non-zero row +0, every plan
+of its decode kernel bitwise the same); an MoE decode step bitwise equal to itself
 on the same state; attention and the KV write at Qwen1.5-MoE's heads
 (dh 128, g 1).
 """
@@ -627,6 +630,92 @@ def test_gemm_experts_kernel_bitwise_per_expert_and_vs_plain(cuda, kn, c):
     # rows independent of C, and repeat calls bitwise equal
     assert torch.equal(qtensor.qmm_experts(x[:, :1], qw), y[:, :1])
     assert torch.equal(qtensor.qmm_experts(x, qw), y)
+
+
+def _routed_rows(k: int, c: int, seed: int) -> torch.Tensor:
+    """``chip_smoke.routed_rows``: the (64, C, K) bf16 buffer
+    ``moe.dispatch_buffer`` builds for seeded random tokens routed top-4
+    over 60 experts with cap = C - 1, then experts 56-59 holding a row
+    non-zero only in K's last split (56), an Inf (57), a NaN (58) and -0.0
+    everywhere (59)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.routed_rows(k, c, torch.device("cuda"), seed)
+
+
+def _live(x: torch.Tensor) -> torch.Tensor:
+    """(E,) True where an expert's rows hold an element other than +-0."""
+    return ((x.view(torch.int16) & 0x7FFF) != 0).flatten(1).any(1)
+
+
+@pytest.mark.parametrize("c", EXPERT_CS)
+@pytest.mark.parametrize("kn", EXPERT_KN)
+def test_gemm_experts_on_dispatch_buffers_bitwise_per_expert(cuda, kn, c):
+    """On the MoE layer's own capacity buffers: every expert's rows bitwise
+    the 2-D launch on its slice as int32 (signed zeros and NaN bits
+    count), +0 for every expert without a non-zero row (the -0.0 expert
+    and the experts that received no token), the NaN and Inf rows
+    non-finite, the last-split-only row computed, and the finite outputs
+    within 1e-3 of max|plain|."""
+    k, n = kn
+    qw = _expert_stack(k, n)
+    x = _routed_rows(k, c, 100 + c)
+    y = qtensor.qmm_experts(x, qw)
+    live = _live(x)
+    assert not live[59] and live[56:59].all()
+    for e in range(64):
+        two_d = qtensor.qmm(x[e], qw.replace(payload=qw.payload[e],
+                                             scales=qw.scales[e],
+                                             scale32=qw.scale32[e]))
+        assert torch.equal(y[e].view(torch.int32),
+                           two_d.view(torch.int32)), e
+        if not live[e]:
+            assert not y[e].view(torch.int32).any(), e
+    assert not y[58, c - 1].isfinite().any()
+    assert not y[57, c - 1].isfinite().any()
+    assert y[56, c - 1].any()
+    yp = mixfp4_gemm.gemm_w4a16_experts_plain(x, qw.payload, qw.scales,
+                                              qw.scale32, n)
+    fin = yp.isfinite()
+    assert torch.equal(fin, y.isfinite())
+    err = float((y[fin] - yp[fin]).abs().max())
+    assert err <= 1e-3 * float(yp[fin].abs().max())
+
+
+@pytest.mark.parametrize("kn", EXPERT_KN)
+def test_gemm_experts_every_plan_gives_the_same_bits(cuda, kn):
+    """The expert decode kernel's plan (column tile, ring depth) changes
+    which CTA computes a column and how far its loads run ahead, never a
+    bit, at C = 1, 5 (the served decode), 16 and 64."""
+    from repro_torch.kernels import tuning
+    k, n = kn
+    qw = _expert_stack(k, n)
+    for c in (1, 5, 16, 64):
+        x = _routed_rows(k, c, 7) if c != 16 else torch.randn(
+            64, c, k, device=cuda).to(torch.bfloat16)
+        want = qtensor.qmm_experts(x, qw).view(torch.int32)
+        for plan in tuning.expert_plans(c, k):
+            y = mixfp4_gemm._experts_launch(x, qw.payload, qw.scales,
+                                            qw.scale32, n, plan)
+            assert torch.equal(y.view(torch.int32), want), (c, plan)
+
+
+def test_gemm_experts_launcher_refuses_a_bad_plan(cuda):
+    from repro_torch.kernels import tuning
+    qw = _expert_stack(1408, 2048)
+    x = torch.zeros(64, 5, 1408, dtype=torch.bfloat16, device=cuda)
+    # a 32- and a 48-column tile; threads other than 2 per column; a ring
+    # of 1 and of 5 slots
+    for plan in ((32, 64, 2), (48, 96, 2), (64, 256, 2), (128, 128, 2),
+                 (64, 128, 1), (64, 128, 5)):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            mixfp4_gemm._experts_launch(x, qw.payload, qw.scales,
+                                        qw.scale32, 2048,
+                                        tuning.ExpertPlan(*plan))
 
 
 def test_gemm_experts_wrapper_refuses_bad_operands(cuda):

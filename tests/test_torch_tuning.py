@@ -14,6 +14,13 @@ capacity, and paged equals fixed), ``SPLIT_S`` a multiple of the KV
 pool's page and equal to the C source's, and at least one non-empty CTA
 per SM at ``chip_smoke.py``'s phase-2 shape.
 
+The expert stack's decode kernel takes its column tile, threads and ring
+depth from ``tuning.expert_plan``: a pure function of (C, K, N) within
+the C launcher's limits (constants against ``mixfp4_gemm_experts.cuh``),
+its tiles covering every column once, its splits ``select``'s (K alone),
+and at the served B = 4 decode at least one CTA per SM from the 16
+experts that hold a row.
+
   PYTHONPATH=src python -m pytest -q tests/test_torch_tuning.py
 """
 import importlib.util
@@ -256,3 +263,109 @@ def test_row_scale_plan_is_the_measured_fastest(mk):
 def test_row_scale_plan_rejects_bad_shapes(mk):
     with pytest.raises(ValueError):
         tuning.row_scale_plan(*mk)
+
+
+# ---------------------------------------------------------------------------
+# the expert stack's decode kernel
+# ---------------------------------------------------------------------------
+EXPERT_SRC = HEADER.parent / "mixfp4_gemm_experts.cuh"
+# qwen2-moe's expert projections: up/gate, down
+MOE_KN = [(2048, 1408), (1408, 2048)]
+EXPERT_CS = [0, 1, 4, 5, 16, 17, 32, 33, 63, 64]
+
+
+@pytest.mark.parametrize("c", EXPERT_CS)
+@pytest.mark.parametrize("kn", [*MOE_KN, (2304, 9216), (176, 48), (16, 16)])
+def test_expert_plan_is_a_pure_function_within_the_kernel_limits(c, kn):
+    """The plan depends on (C, K, N) alone (the same answer every call, no
+    other input), takes a column tile and ring depth the C launcher
+    accepts, one warp per 16 columns, and fits a CTA's shared memory."""
+    import inspect
+
+    k, n = kn
+    assert list(inspect.signature(tuning.expert_plan).parameters) == [
+        "c", "k", "n"]
+    plan = tuning.expert_plan(c, k, n)
+    assert plan == tuning.expert_plan(c, k, n)
+    consts = _header_constants(EXPERT_SRC)
+    assert consts["EXPERT_MIN_STAGES"] == tuning.EXPERT_MIN_STAGES
+    assert consts["EXPERT_MAX_STAGES"] == tuning.EXPERT_MAX_STAGES
+    assert consts["EXPERT_SMEM_LIMIT"] == tuning.EXPERT_SMEM_LIMIT
+    assert plan in tuning.expert_plans(c, k)
+    for cand in tuning.expert_plans(c, k):
+        assert cand.tile_n in tuning.EXPERT_TILES
+        assert cand.threads == 2 * cand.tile_n
+        assert tuning.EXPERT_MIN_STAGES <= cand.stages <= \
+            tuning.EXPERT_MAX_STAGES
+        assert tuning.expert_smem_bytes(c, k, cand.tile_n, cand.stages) <= \
+            tuning.EXPERT_SMEM_LIMIT
+
+
+def test_expert_launcher_takes_the_plans_tiles():
+    """The C launcher instantiates the expert kernel for the column tiles
+    of ``tuning.EXPERT_TILES`` (16 columns, one warp, per scale block)."""
+    text = (HEADER.parent / "mixfp4_gemm_w4a16.cu").read_text()
+    warps = set(re.findall(r"w4a16_experts_decode_kernel<R, (\d+)>", text))
+    assert warps == {str(t // 16) for t in tuning.EXPERT_TILES}
+    assert all(f"tile_n == {t}" in text for t in tuning.EXPERT_TILES)
+
+
+@pytest.mark.parametrize("c", EXPERT_CS)
+@pytest.mark.parametrize("n", [16, 48, 1408, 2048, 2050, 9216])
+def test_expert_plan_covers_every_column_once(c, n):
+    """The column tiles of the launch (ceil(N / tile_n) CTAs per expert)
+    hold every output column exactly once."""
+    plan = tuning.expert_plan(c, 1408, n)
+    tiles = -(-n // plan.tile_n)
+    cols = [col for t in range(tiles)
+            for col in range(t * plan.tile_n, min((t + 1) * plan.tile_n, n))]
+    assert cols == list(range(n))
+
+
+@pytest.mark.parametrize("kn", MOE_KN)
+def test_expert_splits_come_from_k_alone(kn):
+    """The expert kernel walks ``tuning.select``'s splits: the same depth
+    and count at every decode C and N, as the 2-D entry's, so each expert's
+    rows are bitwise the 2-D launch's and independent of C; the plan
+    itself holds no split."""
+    k, n = kn
+    assert {tuning.select(c, k)[1:] for c in EXPERT_CS} == {
+        (tuning.SPLIT_K, -(-k // tuning.SPLIT_K))}
+    assert not set(tuning.ExpertPlan._fields) & {"split_k", "splits"}
+    assert "split_k" in (HEADER.parent / "mixfp4_gemm_w4a16.cu").read_text()
+
+
+@pytest.mark.parametrize("kn", MOE_KN)
+def test_expert_plan_spreads_the_served_experts_over_every_sm(kn):
+    """At the served B = 4 decode (C = 5) at most 16 experts hold a row;
+    their CTAs alone must number at least one per SM of an H100."""
+    k, n = kn
+    plan = tuning.expert_plan(5, k, n)
+    assert 16 * -(-n // plan.tile_n) >= H100_SMS
+
+
+def test_expert_smem_bytes_counts_ring_scales_and_list():
+    """C = 5, K = 1408 (6 splits), 64-column tile, 4 slots: 4 x (128 rows
+    x 80 payload bytes + 5 x 264 bf16) + 6 x 16 x 4 scale pairs of 4
+    bytes + (2 x 6 + 1) ints."""
+    assert tuning.expert_smem_bytes(5, 1408, 64, 4) == \
+        4 * (128 * 80 + 5 * 264 * 2) + 6 * 16 * 4 * 4 + 13 * 4
+
+
+# the fastest plan (column tile, threads, ring slots) of ``decode_study.py
+# experts-sweep`` on the H100 at qwen2-moe's expert projections, by C
+# (64 experts of random rows; PERF.md §6)
+EXPERT_MEASURED = {5: (64, 128, 2), 16: (128, 256, 2), 64: (128, 256, 2)}
+
+
+@pytest.mark.parametrize("c", sorted(EXPERT_MEASURED))
+@pytest.mark.parametrize("kn", MOE_KN)
+def test_expert_plan_is_the_measured_fastest(c, kn):
+    assert tuple(tuning.expert_plan(c, *kn)) == EXPERT_MEASURED[c]
+
+
+@pytest.mark.parametrize("ckn", [(65, 2048, 1408), (-1, 2048, 1408),
+                                 (5, 1400, 1408), (5, 0, 16)])
+def test_expert_plan_rejects_shapes_off_the_decode_variant(ckn):
+    with pytest.raises(ValueError):
+        tuning.expert_plan(*ckn)
