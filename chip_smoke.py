@@ -19,7 +19,11 @@ Phases (any failed check raises, so the script exits non-zero):
    capacities (``[attn-invariance]``);
    every GEMM's rows must be bitwise independent of M, across its decode
    (M <= 64, split K reduced in the launch) and prefill variants, and
-   repeat calls bitwise equal;
+   repeat calls bitwise equal; decode attention at StarCoder2-15B's heads
+   (B=4, H=48 over Hkv=4, g=12, dh=128; the kernel walks the group in
+   passes of at most 8 heads), fixed and paged, on phase 2's lengths:
+   within 1e-4 of the plain version, paged == fixed bitwise, timed beside
+   its byte bound and SDPA (``[attn-g12]``);
 3. serve six greedy requests (four share a 1000-token prefix; one prompt
    of 4500 tokens) through ``ServeEngine`` for gemma2-2b at full width
    (26 layers, packed MixFP4 weights from seeded random values, packed
@@ -61,7 +65,23 @@ Phases (any failed check raises, so the script exits non-zero):
    the expert GEMM's device ms per step);
 3m-paged. the same through the pool as a plain page allocator (MoE has no
    prefix caching): the streams must equal phase 3m's, with no prefix hit;
-4m. qwen2-moe at full width cut to 2 layers, card vs CPU logits.
+4m. qwen2-moe at full width cut to 2 layers, card vs CPU logits;
+5. (after 3c) a packed checkpoint round trip at gemma2-2b width: the
+   phase-3 weights written by ``save_weights`` under ``build/ckpt`` and
+   restored into a fresh engine by ``load_weights``: every packed byte
+   and the fingerprint equal, phase 3's six streams token for token, the
+   save and restore rates; copies with a 0x80 scale byte and a flipped
+   payload byte raise ``ValueError`` / ``IOError`` naming the array;
+3d. Phi-3-medium-14B and StarCoder2-15B (packed KV cache) and
+   H2O-Danube3-4B (bf16 KV cache: head_dim 120), each at full width and
+   depth, drawn and packed a layer at a time and freed before the next:
+   phase 3's requests with 16 new tokens each, fixed slots, W4A16; exact
+   launch counts (per pass and layer 7 GEMMs, 6 for StarCoder2's GeLU MLP;
+   one KV write, and one attention per decode pass, on the packed cache,
+   none on Danube's), every logit row finite, and in five traced decode
+   steps the wrappers' counts equal to the trace's kernel rows;
+4d. each of the three cut to 2 layers, card vs CPU logits (StarCoder2
+   also through a paged pool, bitwise the fixed-slot card run).
 
 Each kernel's launch count comes from the path run that drives it, with
 the counts set to 0 just before that run.  The line before the last is a
@@ -496,15 +516,16 @@ PAGE_LEN = 16
 SERVED_LENGTHS = (1190, 1200, 332, 4532)
 
 
-def paged_attn_inputs(dev):
+def paged_attn_inputs(dev, h: int = 8, dh: int = 256, lengths=None):
     """The phase-2 paged-attention case, from numpy with a fixed seed:
-    q (4, 8, 256); a fixed packed cache of B=4 x 8192 rows x 4 kv heads
+    q (4, h, dh); a fixed packed cache of B=4 x 8192 rows x 4 kv heads
     (rows quantized on the card under the pinned KV scale); its rows
     scattered over a 2049-page pool in a random permutation, with junk
-    wire bytes in the trash page 0; the block tables; the lengths."""
+    wire bytes in the trash page 0; the block tables; the lengths (drawn,
+    or ``lengths``).  The defaults are gemma2-2b's heads."""
     from repro_torch.models.base import quantize_kv_rows
 
-    b, s, hkv, h, dh = 4, 8192, 4, 8, 256
+    b, s, hkv = 4, 8192, 4
     rng = np.random.RandomState(7)
     q = torch.tensor(rng.randn(b, h, dh), dtype=torch.float32, device=dev)
     fixed = []
@@ -512,7 +533,8 @@ def paged_attn_inputs(dev):
         rows = torch.tensor(rng.randn(b, s, hkv, dh), dtype=torch.float32,
                             device=dev)
         fixed += list(quantize_kv_rows(rows))
-    lengths = torch.tensor([s, *rng.randint(1, s + 1, b - 1)],
+    drawn = [s, *rng.randint(1, s + 1, b - 1)]
+    lengths = torch.tensor(drawn if lengths is None else lengths,
                            dtype=torch.int32, device=dev)
     mp = s // PAGE_LEN
     bt = torch.tensor(1 + rng.permutation(b * mp).reshape(b, mp),
@@ -547,6 +569,8 @@ def check_attn_paged(dev, flush) -> dict:
     from repro_torch.kernels import mixfp4_attn as A
 
     q, fixed, lengths, slabs, bt = paged_attn_inputs(dev)
+    if tuple(lengths.tolist()) != PHASE2_LENGTHS:
+        raise AssertionError(f"phase 2 lengths {lengths.tolist()}")
     b, s = fixed[0].shape[:2]
     hkv, dh, h = fixed[0].shape[2], q.shape[2], q.shape[1]
     worst = 0.0
@@ -643,6 +667,80 @@ def check_attn_paged(dev, flush) -> dict:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": g2["sdpa"],
             "device_ms": g2["paged_device"]}
+
+
+# phase 2's paged-attention lengths (paged_attn_inputs draws them)
+PHASE2_LENGTHS = (8192, 2480, 7170, 7059)
+
+
+def check_attn_g12(dev, flush) -> list[dict]:
+    """Decode attention at StarCoder2-15B's heads (48 over 4 kv heads, g =
+    12, dh = 128, no softcap), which the kernel walks in passes of 8 and 4
+    heads, fixed slots and paged pool, on phase 2's lengths: within 1e-4
+    of the plain version, paged == fixed bitwise (window 4096 and 0);
+    timed on the global layer beside its byte bound and SDPA."""
+    from repro_torch.kernels import mixfp4_attn as A
+
+    h, dh = 48, 128
+    q, fixed, lengths, slabs, bt = paged_attn_inputs(
+        dev, h=h, dh=dh, lengths=PHASE2_LENGTHS)
+    b, s, hkv = fixed[0].shape[:3]
+    worst = {"fixed": 0.0, "paged": 0.0}
+    for window in (4096, 0):
+        o = A.mixfp4_attn_decode(q, *fixed, lengths, window=window)
+        op = A.mixfp4_attn_decode_paged(q, *slabs, bt, lengths,
+                                        window=window)
+        plain = A.attn_decode_plain(q, *fixed, lengths, window=window)
+        torch.cuda.synchronize()
+        if not torch.equal(o, op):
+            raise AssertionError(f"g=12 attention window={window}: paged "
+                                 "not bitwise the fixed kernel")
+        for name, out in (("fixed", o), ("paged", op)):
+            err = float((out - plain).abs().max())
+            worst[name] = max(worst[name], err)
+            if not err <= 1e-4:
+                raise AssertionError(f"g=12 {name} attention window="
+                                     f"{window}: error {err}")
+    one = torch.ones((), device=dev)
+    kw = {"window": 0, "k_scale32": one, "v_scale32": one}
+    calls = {"fixed": lambda: A.mixfp4_attn_decode(q, *fixed, lengths, **kw),
+             "paged": lambda: A.mixfp4_attn_decode_paged(q, *slabs, bt,
+                                                         lengths, **kw)}
+    plains = {"fixed": lambda: A.attn_decode_plain(q, *fixed, lengths, **kw),
+              "paged": lambda: A.attn_decode_paged_plain(q, *slabs, bt,
+                                                         lengths, **kw)}
+    kd = A.dequant_kv(fixed[0], fixed[1], 1.0).transpose(1, 2)
+    vd = A.dequant_kv(fixed[2], fixed[3], 1.0).transpose(1, 2)
+    mask = attn_mask(lengths, s, 0)
+    lib_ms = bench(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], kd, vd, attn_mask=mask, enable_gqa=True), 20, flush)
+    rows = attn_rows(lengths, s, 0)
+    out = []
+    for name, replaces in (("fixed", "src/repro/kernels/mixfp4_attn.py:174"),
+                           ("paged", "src/repro/kernels/mixfp4_attn.py:253")):
+        ms = bench(calls[name], 20, flush)
+        dev_ms = bench(calls[name], 20, flush, keep_ahead=True)
+        plain_ms = bench(plains[name], 5, flush)
+        b_ms, b_by = attn_bound(rows, b, h, hkv, dh,
+                                bt.numel() * 4 if name == "paged" else 0)
+        log(f"[attn-g12] {name}: B=4, H=48 over Hkv=4 (g=12), dh=128, "
+            f"8192 rows, lengths {lengths.tolist()}, global: kernel "
+            f"{ms:.4f} ms (card alone {dev_ms:.4f}), plain {plain_ms:.4f} "
+            f"ms, SDPA on the dequantized f32 cache {lib_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}); max abs error vs plain "
+            f"{worst[name]:.3e} (tolerance 1e-4, window 4096 and 0)")
+        entry = "mixfp4_attn_decode" + ("" if name == "fixed" else "_paged")
+        out.append({
+            "name": f"{entry}[g=12]", "counter": entry, "route": "cuda",
+            "source": "src/repro_torch/csrc/mixfp4_attn_decode.cu",
+            "replaces": replaces, "max_abs_err": worst[name],
+            "tolerance": "1e-4 absolute vs plain; paged bitwise fixed",
+            "shape": f"B=4 H=48 Hkv=4 dh=128 S=8192 lengths "
+                     f"{lengths.tolist()}, window 0",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms, "device_ms": dev_ms})
+    log(f"[attn-g12] paged == fixed bitwise at window 4096 and 0")
+    return out
 
 
 def check_attn_invariance(q, fixed, lengths, slabs, bt):
@@ -1402,8 +1500,8 @@ def check_moe_heads(dev, flush):
 # ---------------------------------------------------------------------------
 # phase 3: the served path at full width
 # ---------------------------------------------------------------------------
-def shared_prefix_requests(vocab: int, seed: int):
-    """Phase 3's six requests, 32 new tokens each, in arrival order: a
+def shared_prefix_requests(vocab: int, seed: int, new_tokens: int = 32):
+    """Phase 3's six requests, ``new_tokens`` each, in arrival order: a
     seeded 1000-token prefix (62.5 pages of 16, so a hit takes the
     copy-on-write path) with suffixes of 40-250 tokens for four of them,
     one unrelated 300-token prompt and one of 4500 tokens (decode crosses
@@ -1421,7 +1519,8 @@ def shared_prefix_requests(vocab: int, seed: int):
                rng.randint(0, vocab, 4500),
                np.concatenate([prefix, rng.randint(0, vocab, suffix[2])]),
                np.concatenate([prefix, rng.randint(0, vocab, suffix[3])])]
-    return [Request(uid=i, prompt=p.astype(np.int32), max_new_tokens=32)
+    return [Request(uid=i, prompt=p.astype(np.int32),
+                    max_new_tokens=new_tokens)
             for i, p in enumerate(prompts)]
 
 
@@ -1429,16 +1528,19 @@ LONG_UID = 3                       # the 4500-token request
 
 
 def serve_path(dev, seed: int, tag: str, params=None,
-               arch: str = "gemma2-2b", **kw) -> dict:
-    """Serve phase 3's six greedy requests at full width and depth of
-    ``arch`` with the engine options ``kw`` (the fixed-slot W4A16 path
-    without them), from seeded random weights or from ``params`` (packed
-    leaves pass through); check every launch counter against what the
-    path implies; on an MoE model run one decode step twice on the same
-    state; trace a decode window.  Returns the launch counts, the streams,
-    the engine's packed parameters and the step times.  An MoE model is
-    drawn and packed one layer at a time (its f32 experts would not fit
-    on the card)."""
+               arch: str = "gemma2-2b", new_tokens: int = 32,
+               kv_quant: str | None = "mixfp4", **kw) -> dict:
+    """Serve phase 3's six greedy requests (``new_tokens`` each) at full
+    width and depth of ``arch`` with the engine options ``kw`` (the
+    fixed-slot W4A16 path without them) over the ``kv_quant`` KV cache,
+    from seeded random weights or from ``params`` (packed leaves pass
+    through); check every launch counter against what the path implies;
+    on an MoE model run one decode step twice on the same state; trace a
+    decode window.  Returns the launch counts, the streams and the
+    engine's packed parameters.  Weights drawn here are packed one layer
+    at a time as they are drawn (the larger models' f32 weights would not
+    fit on the card), but for ``act_rht``: its engine rotates the dense
+    weights before it packs them."""
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
@@ -1446,13 +1548,14 @@ def serve_path(dev, seed: int, tag: str, params=None,
 
     cfg = configs.config(arch)
     moe = cfg.family == "moe"
+    packed_kv = kv_quant == "mixfp4"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     if params is None:
-        params = build_model(cfg).init(seed, device=dev,
-                                       pack="mixfp4" if moe else None)
+        params = build_model(cfg).init(
+            seed, device=dev, pack=None if kw.get("act_rht") else "mixfp4")
     engine = ServeEngine(cfg, params, batch_size=4, max_len=8192,
-                         kv_quant="mixfp4", device=dev, **kw)
+                         kv_quant=kv_quant, device=dev, **kw)
     del params
     torch.cuda.synchronize()
     log(f"{tag} {cfg.name}, {cfg.n_layers} layers at full width, act_quant="
@@ -1460,9 +1563,9 @@ def serve_path(dev, seed: int, tag: str, params=None,
         f"{kw.get('kv_pool')}, prefill_chunk={engine.prefill_chunk}: init + "
         f"pack {time.perf_counter() - t0:.1f} s; packed projection bytes "
         f"{engine.packed_bytes} ({engine.compression:.2f}x below bf16); "
-        f"packed KV cache bytes {engine.kv_cache_bytes()} "
+        f"{engine.kv_quant} KV cache bytes {engine.kv_cache_bytes()} "
         f"(B=4, max_len=8192)")
-    reqs = shared_prefix_requests(cfg.vocab, seed)
+    reqs = shared_prefix_requests(cfg.vocab, seed, new_tokens)
     pending = list(reqs)
     ops.reset_launch_counts()
     step_ms, admit_ms, long_ms, n_tok = [], {}, [], 0
@@ -1489,21 +1592,26 @@ def serve_path(dev, seed: int, tag: str, params=None,
     n_pre, n_dec, n_l = (engine.prefill_dispatches, engine.decode_steps,
                          cfg.n_layers)
     per_pass = {name: 0 for name in counts}      # launches per model pass
-    per_pass["mixfp4_quant_kv"] = n_l            # the new K and V rows
+    # the new K and V rows, into the packed cache
+    per_pass["mixfp4_quant_kv"] = n_l if packed_kv else 0
+    n_proj = layer_projections(cfg)
     if moe:                  # attention 4 + shared expert 3; experts 3
-        per_pass["mixfp4_gemm_w4a16"] = 7 * n_l
+        per_pass["mixfp4_gemm_w4a16"] = n_proj * n_l
         per_pass["mixfp4_gemm_w4a16_experts"] = 3 * n_l
     elif engine.act_quant == "bf16":
-        per_pass["mixfp4_gemm_w4a16"] = 7 * n_l
+        per_pass["mixfp4_gemm_w4a16"] = n_proj * n_l
     else:                                        # "mixfp4" + RHT
-        per_pass["mixfp4_gemm_w4a4_fused"] = 7 * n_l
-        per_pass["fwht_row_scale"] = 7 * n_l     # the per-row scales
+        per_pass["mixfp4_gemm_w4a4_fused"] = n_proj * n_l
+        per_pass["fwht_row_scale"] = n_proj * n_l  # the per-row scales
     want = {name: c * (n_pre + n_dec) for name, c in per_pass.items()}
     attn = ("mixfp4_attn_decode" if engine.kv_pool is None
             else "mixfp4_attn_decode_paged")
-    want[attn] = n_l * n_dec                     # decode passes only
+    # decode passes only, on the packed cache (the bf16 one is read by
+    # the plain attention)
+    want[attn] = n_l * n_dec if packed_kv else 0
     for r in reqs:
-        if len(r.generated) != 32 or r.finish_reason != "max_new_tokens":
+        if len(r.generated) != new_tokens or \
+                r.finish_reason != "max_new_tokens":
             raise AssertionError(f"request {r.uid} (prompt {len(r.prompt)}): "
                                  f"{len(r.generated)} tokens, "
                                  f"{r.finish_reason}")
@@ -1521,14 +1629,15 @@ def serve_path(dev, seed: int, tag: str, params=None,
                    f"running the 4500-token prompt's {len(long_ms)} chunks: "
                    f"median {statistics.median(long_ms):.1f} ms, max "
                    f"{max(long_ms):.1f} ms")
-    log(f"{tag} prompts {[len(r.prompt) for r in reqs]}, 32 new tokens "
-        f"each: {n_tok} tokens in {wall:.2f} s ({n_tok / wall:.1f} tok/s); "
+    log(f"{tag} prompts {[len(r.prompt) for r in reqs]}, {new_tokens} new "
+        f"tokens each: {n_tok} tokens in {wall:.2f} s ({n_tok / wall:.1f} "
+        f"tok/s); "
         f"{prefill}; {n_dec} decode steps (median "
         f"{statistics.median(step_ms):.2f} ms); every logit row finite; "
         f"peak device memory {torch.cuda.max_memory_allocated()} B")
     log(f"{tag} launches {counts}; per prefill pass "
         f"{ {k: v for k, v in per_pass.items() if v} }, per decode pass the "
-        f"same plus {n_l} {attn} launches")
+        f"same plus {n_l if packed_kv else 0} {attn} launches")
     if engine.kv_pool is not None:
         rep = engine.pool_report()
         log(f"{tag} pool {rep}; peak concurrency {engine.max_concurrent}")
@@ -1548,6 +1657,12 @@ def serve_path(dev, seed: int, tag: str, params=None,
     profile_decode(engine, seed, tag)
     return {"counts": counts, "params": engine.params,
             "streams": {r.uid: list(r.generated) for r in reqs}}
+
+
+def layer_projections(cfg) -> int:
+    """Packed 2-D projections a layer runs per pass: attention's 4 and the
+    MLP's 3 (SwiGLU, GeGLU; an MoE layer's shared expert) or 2 (GeLU)."""
+    return 4 + (2 if cfg.mlp_type == "gelu" and not cfg.n_experts else 3)
 
 
 def step_twice(engine, seed: int, tag: str):
@@ -1593,11 +1708,24 @@ def step_twice(engine, seed: int, tag: str):
 STEP_MEMSET_OPS = {"aten::argmax", "aten::all"}
 
 
+# trace row substring -> the wrappers whose launches run those kernels
+TRACE_WRAPPERS = {
+    "w4a16_": ("mixfp4_gemm_w4a16", "mixfp4_gemm_w4a16_experts"),
+    "w4a4_": ("mixfp4_gemm_w4a4", "mixfp4_gemm_w4a4_fused"),
+    "attn_decode_kernel": ("mixfp4_attn_decode", "mixfp4_attn_decode_paged"),
+    "quant_rows_kernel": ("mixfp4_quant_rows",),
+    "quant_kv_kernel": ("mixfp4_quant_kv",),
+    "fwht_rows_kernel": ("fwht_rows",),
+    "fwht_row_scale_kernel": ("fwht_row_scale",),
+}
+
+
 def profile_decode(engine, seed: int, tag: str):
     """Fill every slot with a 1024-token prompt, then trace five decode
     steps with ``torch.profiler``: device time by kernel, and the share of
     the traced window in which the device was busy.  A chunked engine
     first runs every prefill chunk, so the window holds decode only."""
+    from repro_torch.core import qtensor
     from repro_torch.serving.engine import Request
 
     steps = 5
@@ -1631,7 +1759,8 @@ def profile_decode(engine, seed: int, tag: str):
     gemm = {key: c for key, c in rows.items()
             if "w4a16_" in key or "w4a4_" in key}
     n_gemm = sum(gemm.values())
-    per_layer = 7 + (3 if engine.cfg.n_experts else 0)
+    per_layer = layer_projections(engine.cfg) + (3 if engine.cfg.n_experts
+                                                 else 0)
     want = per_layer * engine.cfg.n_layers * steps
     memsets = collections.Counter(
         ev.name for ev in prof.events() for kern in ev.kernels
@@ -1653,6 +1782,19 @@ def profile_decode(engine, seed: int, tag: str):
         raise AssertionError(f"{tag} traced GEMM rows {gemm} ({n_gemm}, "
                              f"expected {want} decode-variant launches, "
                              f"{want_experts} of them the expert kernel)")
+    # every launch a wrapper counted shows in the trace, and no other
+    want_attn = (engine.cfg.n_layers * steps
+                 if isinstance(engine.cache["k"], qtensor.QTensor) else 0)
+    for key, names in TRACE_WRAPPERS.items():
+        n_wrapped = sum(wrapped.get(name, 0) for name in names)
+        if trace_rows[key] != n_wrapped:
+            raise AssertionError(f"{tag} trace rows {key!r}: "
+                                 f"{trace_rows[key]}, the wrappers counted "
+                                 f"{n_wrapped} ({names})")
+    if trace_rows["attn_decode_kernel"] != want_attn or \
+            trace_rows["quant_kv_kernel"] != want_attn:
+        raise AssertionError(f"{tag} traced attention / KV write rows "
+                             f"{trace_rows}: expected {want_attn} each")
     if not set(memsets) <= STEP_MEMSET_OPS:
         raise AssertionError(f"{tag} memsets by {dict(memsets)}: only the "
                              f"step's {sorted(STEP_MEMSET_OPS)} may launch "
@@ -1717,13 +1859,17 @@ def decode_step_ab(dev, params, seed: int, rounds: int = 8):
 # phase 4: card vs CPU on the same packed bytes
 # ---------------------------------------------------------------------------
 def card_vs_cpu(dev, seed: int, w4a4: bool = False,
-                arch: str = "gemma2-2b") -> dict:
+                arch: str = "gemma2-2b", kv_quant: str | None = "mixfp4",
+                paged: bool = False) -> dict:
     """``arch`` at full width cut to 2 layers, on the card and on the CPU
-    from the same packed bytes: W4A16, or with ``w4a4`` the fused W4A4 +
-    RHT path, whose card logits must also equal the two-pass spelling's
-    bitwise.  Returns the launch counts of the two-pass card run (the
-    path that drives the packed W4A4 kernel, ``fwht_rows`` and the
-    activation quantizer), or {}."""
+    from the same packed bytes, over the ``kv_quant`` KV cache: W4A16, or
+    with ``w4a4`` the fused W4A4 + RHT path, whose card logits must also
+    equal the two-pass spelling's bitwise; with ``paged`` the card also
+    runs through a paged pool (a permuted block table), whose logits must
+    equal the fixed-slot ones bitwise.  Returns the launch counts of the
+    two-pass card run (the path that drives the packed W4A4 kernel,
+    ``fwht_rows`` and the activation quantizer) or of the paged one, or
+    {}."""
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
@@ -1748,8 +1894,12 @@ def card_vs_cpu(dev, seed: int, w4a4: bool = False,
     prompt = rng.randint(0, cfg.vocab, 64)
     forced = rng.randint(0, cfg.vocab, 4)
 
-    def run(params, device, act):
-        cache = model.init_cache(1, 128, kv_quant="mixfp4", device=device)
+    def run(params, device, act, pages: bool = False):
+        cache = model.init_cache(1, 128, kv_quant=kv_quant, device=device,
+                                 pages=(9, PAGE_LEN) if pages else None)
+        if pages:                       # the lane's 8 pages, permuted
+            cache["pages"][0] = torch.tensor(
+                1 + rng.permutation(8), dtype=torch.int32, device=device)
         toks = torch.tensor(prompt[None], device=device)
         logits, cache = model.prefill_slot(params, toks, cache, 0, act=act)
         out = [logits.float().cpu()]
@@ -1768,7 +1918,9 @@ def card_vs_cpu(dev, seed: int, w4a4: bool = False,
     else:
         path = {"mixfp4_gemm_w4a16"} | (
             {"mixfp4_gemm_w4a16_experts"} if moe else set())
-    if set(used) != {"mixfp4_quant_kv", "mixfp4_attn_decode"} | path:
+    if kv_quant == "mixfp4":
+        path |= {"mixfp4_quant_kv", "mixfp4_attn_decode"}
+    if set(used) != path:
         raise AssertionError(f"the card run took other kernels: {used}")
     cpu = run(packed_cpu, torch.device("cpu"), act)
     if not torch.isfinite(gpu).all():
@@ -1778,11 +1930,30 @@ def card_vs_cpu(dev, seed: int, w4a4: bool = False,
     if not err <= 2e-2:
         raise AssertionError(f"card vs CPU logits: normalised error {err}")
     tag = ("[card-vs-cpu-w4a4]" if w4a4 else
-           "[card-vs-cpu-moe]" if moe else "[card-vs-cpu]")
+           "[card-vs-cpu-moe]" if moe else
+           "[card-vs-cpu]" if arch == "gemma2-2b" else
+           f"[card-vs-cpu-{arch}]")
     log(f"{tag} {cfg.name} width, 2 layers, act_quant={act.mode}, "
-        f"act_rht={act.rht}: prefill of 64 tokens + 4 teacher-forced decode "
-        f"steps; logits normalised by max|CPU| agree to {err:.3e} "
-        f"(tolerance 2e-2); argmax agrees on {agree}/5 rows")
+        f"act_rht={act.rht}, {kv_quant or 'bf16'} KV cache: prefill of 64 "
+        f"tokens + 4 teacher-forced decode steps; logits normalised by "
+        f"max|CPU| agree to {err:.3e} (tolerance 2e-2); argmax agrees on "
+        f"{agree}/5 rows")
+    if paged:
+        ops.reset_launch_counts()
+        through_pool = run(packed, dev, act, pages=True)
+        counts = ops.launch_counts()
+        n_l = cfg.n_layers
+        if counts["mixfp4_attn_decode_paged"] != n_l * len(forced) or \
+                counts["mixfp4_attn_decode"]:
+            raise AssertionError(f"paged card run launched {counts}")
+        if not torch.equal(through_pool, gpu):
+            raise AssertionError(f"{tag} logits through the paged pool "
+                                 "differ from the fixed-slot ones")
+        log(f"{tag} through a paged pool (8 permuted pages of 16): logits "
+            f"bitwise the fixed-slot card run's; "
+            f"{counts['mixfp4_attn_decode_paged']} paged attention "
+            "launches")
+        return counts
     if not w4a4:
         return {}
     ops.reset_launch_counts()
@@ -1895,6 +2066,128 @@ def chunked_prefix_vs_whole(dev, seed: int):
         f"next decode step's logits bitwise equal")
 
 
+# phase 3d: arch -> (tag, KV cache); Danube's head_dim (120) takes no
+# packed cache
+DENSE = {"phi3-medium-14b": ("phi3", "mixfp4"),
+         "starcoder2-15b": ("starcoder2", "mixfp4"),
+         "h2o-danube-3-4b": ("danube", None)}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: a packed checkpoint round trip at gemma2-2b width
+# ---------------------------------------------------------------------------
+CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "ckpt")
+CKPT_ARRAY = "layers/attn/wq"      # the array the corrupt copies damage
+
+
+def _leaf_bytes(tree) -> list:
+    from repro_torch.checkpoint import manager
+    return [t.reshape(-1).view(torch.uint8) for t in manager._flatten(tree)[0]]
+
+
+def corrupt_copy(src: str, dst: str, plane: str, fix_packed: bool):
+    """A copy of checkpoint ``src`` (hard links) with the first byte of
+    ``CKPT_ARRAY``'s ``plane`` damaged by ``damage_packed_array``: a scale
+    byte set to 0x80, or a payload byte flipped (``^ 0x11``); the leaf's
+    sha is fixed up, and with ``fix_packed`` the array's digest too, so
+    only the scale scan can catch it."""
+    from repro_torch.checkpoint import manager
+
+    def damage(flat):
+        flat[0] = 0x80 if plane == "scales" else flat[0] ^ 0x11
+        return flat
+
+    step = "step_0000000000"
+    os.makedirs(os.path.join(dst, step))
+    for name in os.listdir(os.path.join(src, step)):
+        os.link(os.path.join(src, step, name), os.path.join(dst, step, name))
+    manager.damage_packed_array(dst, CKPT_ARRAY, plane, damage,
+                                fix_packed=fix_packed)
+
+
+def checkpoint_round_trip(dev, seed: int, params, streams: dict):
+    """gemma2-2b at full width: an engine on phase 3's packed weights
+    writes them with ``save_weights``; a fresh engine (other seeded
+    weights) restores them with ``load_weights``.  Every packed byte and
+    the fingerprint must be equal, and the restored engine must serve
+    phase 3's six streams token for token; copies with a 0x80 scale byte
+    and with a flipped payload byte must raise ``ValueError`` and
+    ``IOError`` naming the array.  Prints the save and restore rates."""
+    import shutil
+
+    from repro_torch import configs, convert
+    from repro_torch.checkpoint import CheckpointManager, manager
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg = configs.config("gemma2-2b")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    d = os.path.join(CKPT_DIR, "gemma2-2b")
+    kw = {"batch_size": 4, "max_len": 8192, "kv_quant": "mixfp4",
+          "device": dev}
+    saver = ServeEngine(cfg, params, **kw)
+    t = time.perf_counter()
+    saver.save_weights(d)
+    save_s = time.perf_counter() - t
+    step_dir = os.path.join(d, "step_0000000000")
+    n_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                  for f in os.listdir(step_dir))
+    loader = ServeEngine(cfg, build_model(cfg).init(
+        seed + 1, device=dev, pack="mixfp4"), **kw)
+    t = time.perf_counter()
+    loader.load_weights(d)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    want, got = _leaf_bytes(saver.params), _leaf_bytes(loader.params)
+    if len(want) != len(got) or not all(
+            torch.equal(a, b) for a, b in zip(want, got)):
+        raise AssertionError("restored packed bytes differ from the saved "
+                             "engine's")
+    fp = CheckpointManager(d).packed_fingerprint()
+    fp_restored = manager._sha16(json.dumps(manager.packed_checksums(
+        convert.packed_to_stacked(loader.params)),
+        sort_keys=True).encode())
+    if fp != fp_restored or (saver.packed_bytes, saver.dense_bytes) != (
+            loader.packed_bytes, loader.dense_bytes):
+        raise AssertionError(f"fingerprint {fp} vs restored {fp_restored}; "
+                             f"packed bytes {saver.packed_bytes} vs "
+                             f"{loader.packed_bytes}")
+    del saver, want, got
+    reqs = shared_prefix_requests(cfg.vocab, seed)
+    pending = list(reqs)
+    while pending or loader.has_work():
+        while pending and loader.add_request(pending[0]):
+            pending.pop(0)
+        loader.step()
+    got = {r.uid: list(r.generated) for r in reqs}
+    if got != streams:
+        raise AssertionError("the restored engine's streams differ from "
+                             "phase 3's")
+    log(f"[checkpoint] gemma2-2b at full width: {n_bytes} B in "
+        f"{len(os.listdir(step_dir)) - 1} leaves ({loader.packed_bytes} B "
+        f"of packed projections, the rest the f32 embedding and norms); "
+        f"save_weights {save_s:.2f} s ({n_bytes / save_s / 1e9:.2f} GB/s), "
+        f"load_weights into a fresh engine {load_s:.2f} s "
+        f"({n_bytes / load_s / 1e9:.2f} GB/s); every packed byte equal, "
+        f"fingerprint {fp} equal; the six phase-3 streams equal phase 3's "
+        f"token for token")
+    for plane, fix, err, what in (("scales", True, ValueError, "0x80"),
+                                  ("payload", False, IOError, "payload")):
+        bad = os.path.join(CKPT_DIR, f"bad-{plane}")
+        corrupt_copy(d, bad, plane, fix)
+        try:
+            loader.load_weights(bad)
+        except err as e:
+            if CKPT_ARRAY not in str(e) or what not in str(e):
+                raise AssertionError(f"corrupt {plane}: {e}") from e
+            log(f"[checkpoint] a copy with a corrupt {plane} byte of "
+                f"{CKPT_ARRAY}: {type(e).__name__}: {str(e)[:110]}...")
+        else:
+            raise AssertionError(f"a corrupt {plane} byte was restored")
+    shutil.rmtree(CKPT_DIR)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1918,11 +2211,13 @@ def main():
         f"({', '.join(report)})")
 
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    g12 = check_attn_g12(dev, flush)
+    g12[0]["path"], g12[1]["path"] = "starcoder2-15b", "starcoder2-15b-paged"
     kernels = [check_quant(dev, flush), check_quant_kv(dev, flush),
                check_gemm(dev, flush),
                check_attn(dev, flush), *check_w4a4(dev, flush),
                *check_fwht(dev, flush), check_attn_paged(dev, flush),
-               check_gemm_experts(dev, flush)]
+               check_gemm_experts(dev, flush), *g12]
     check_moe_heads(dev, flush)
     del flush
     check_m_invariance(dev)
@@ -1931,11 +2226,15 @@ def main():
     paged = serve_path(dev, args.seed, "[serve-paged]",
                        params=fixed.pop("params"), kv_pool=2049,
                        kv_page_len=PAGE_LEN, prefill_chunk=512)
-    decode_step_ab(dev, paged.pop("params"), args.seed)
+    gemma = paged.pop("params")
+    decode_step_ab(dev, gemma, args.seed)
     if paged["streams"] != fixed["streams"]:
         raise AssertionError("paged chunked streams differ from the fixed "
                              "whole-prompt ones")
     log("[serve-paged] all six streams equal phase 3's token for token")
+    checkpoint_round_trip(dev, args.seed, gemma, fixed["streams"])
+    del gemma
+    torch.cuda.empty_cache()
     w4a4 = serve_path(dev, args.seed, "[serve-w4a4]", act_quant="mixfp4",
                       act_rht=True)
     del w4a4["params"]
@@ -1957,11 +2256,26 @@ def main():
     log("[serve-moe-paged] all six streams equal phase 3m's token for "
         "token")
     paths["moe-w4a16"] = moe_fixed["counts"]
+    del moe_fixed
+    torch.cuda.empty_cache()
     card_vs_cpu(dev, args.seed, arch=moe)
+    # the remaining dense configs at full width and depth, one at a time
+    for arch, (tag, kv) in DENSE.items():
+        served = serve_path(dev, args.seed, f"[serve-{tag}]", arch=arch,
+                            new_tokens=16, kv_quant=kv)
+        paths[arch] = served["counts"]
+        del served
+        torch.cuda.empty_cache()
+    for arch, (tag, kv) in DENSE.items():
+        counts = card_vs_cpu(dev, args.seed, arch=arch, kv_quant=kv,
+                             paged=arch == "starcoder2-15b")
+        if counts:
+            paths[f"{arch}-paged"] = counts
     for entry in kernels:
-        entry["path"], entry["launches"] = next(
-            (name, c[entry["name"]]) for name, c in paths.items()
-            if c[entry["name"]])
+        counter = entry.get("counter", entry["name"])
+        path = entry.get("path") or next(name for name, c in paths.items()
+                                         if c[counter])
+        entry["path"], entry["launches"] = path, paths[path][counter]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

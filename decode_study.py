@@ -1,6 +1,6 @@
 """Decode-step studies of the PyTorch/CUDA port on one GPU.
 
-Seven commands, each for one CUDA device:
+Eight commands, each for one CUDA device:
 
 ``ab --parent DIR [--rounds R]``
     Parent against change in alternating turns (parent, change, change,
@@ -62,6 +62,12 @@ Seven commands, each for one CUDA device:
     host kept ahead, L2 flushed), on (a) 64 experts of random rows at C = 5
     and (b) the served B = 4 dispatch (16 experts hold a row).
 
+``attn-ab --parent DIR [--rounds R]``
+    Parent against change in alternating turns, as ``experts-ab``: the
+    decode-attention kernel on ``chip_smoke.py`` phase 2's inputs (B = 4,
+    8192 rows, gemma2-2b heads: g = 2, dh = 256, softcap 50), fixed-slot
+    and paged, global and local (window 4096) layer, card alone.
+
 ``trace-clock [--windows N]``
     Traces N windows of one decode-M GEMM call each (W4A16, then fused
     W4A4 + RHT, alternately), every window after a warm-up call, in two
@@ -78,6 +84,7 @@ Seven commands, each for one CUDA device:
   python3 decode_study.py rowscale-sweep
   python3 decode_study.py experts-sweep
   python3 decode_study.py experts-ab --parent build/parent --rounds 2
+  python3 decode_study.py attn-ab --parent build/parent --rounds 3
 """
 from __future__ import annotations
 
@@ -625,18 +632,60 @@ def experts_turn(tree: Path, seed: int) -> dict:
     return out
 
 
-def experts_ab(parent: Path, rounds: int, seed: int):
-    """Alternating turns of :func:`experts_turn`, parent and change."""
+def attn_turn(tree: Path, seed: int) -> dict:
+    """One turn of ``attn-ab``: the decode-attention entries' card-alone ms
+    on phase 2's inputs with ``tree``'s kernels."""
+    _import_tree(tree)
+    import chip_smoke as cs
+    from repro_torch.kernels import mixfp4_attn as A
+
+    dev = torch.device("cuda")
+    q, fixed, lengths, slabs, bt = cs.paged_attn_inputs(dev)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    one = torch.ones((), device=dev)
+    out = {"tree": str(tree)}
+    for window in (0, 4096):
+        kw = {"window": window, "k_scale32": one, "v_scale32": one,
+              "softcap": 50.0}
+        out[f"fixed_w{window}_ms"] = cs.bench(
+            lambda: A.mixfp4_attn_decode(q, *fixed, lengths, **kw), 20,
+            flush, keep_ahead=True)
+        out[f"paged_w{window}_ms"] = cs.bench(
+            lambda: A.mixfp4_attn_decode_paged(q, *slabs, bt, lengths, **kw),
+            20, flush, keep_ahead=True)
+    return out
+
+
+def _turns(cmd: str, parent: Path, rounds: int, seed: int) -> list[dict]:
+    """Alternating turns (parent, change, change, parent; ``rounds`` times)
+    of the ``cmd`` command, each a fresh process."""
     turns = []
     for _ in range(rounds):
         for tree in (parent, ROOT, ROOT, parent):
             res = subprocess.run(
-                [sys.executable, str(ROOT / "decode_study.py"),
-                 "experts-turn", "--tree", str(tree.resolve()), "--seed",
-                 str(seed)], capture_output=True, text=True, check=True)
+                [sys.executable, str(ROOT / "decode_study.py"), cmd,
+                 "--tree", str(tree.resolve()), "--seed", str(seed)],
+                capture_output=True, text=True, check=True)
             turn = json.loads(res.stdout.strip().splitlines()[-1])
             log(json.dumps(turn))
             turns.append(turn)
+    return turns
+
+
+def attn_ab(parent: Path, rounds: int, seed: int):
+    """Alternating turns of :func:`attn_turn`, parent and change."""
+    turns = _turns("attn-turn", parent, rounds, seed)
+    for name, tree in (("parent", parent.resolve()), ("change", ROOT)):
+        mine = [t for t in turns if Path(t["tree"]) == tree]
+        log(f"[attn-ab] {name}: decode attention on phase 2's inputs, card "
+            f"alone, median of {len(mine)} turns (ms): " + ", ".join(
+                f"{key[:-3]} {statistics.median(t[key] for t in mine):.4f}"
+                for key in mine[0] if key.endswith("_ms")))
+
+
+def experts_ab(parent: Path, rounds: int, seed: int):
+    """Alternating turns of :func:`experts_turn`, parent and change."""
+    turns = _turns("experts-turn", parent, rounds, seed)
     for name, tree in (("parent", parent.resolve()), ("change", ROOT)):
         mine = [t for t in turns if Path(t["tree"]) == tree]
         log(f"[experts-ab] {name}: one layer's 3 expert launches, card "
@@ -667,6 +716,11 @@ def main():
     p.add_argument("--rounds", type=int, default=2)
     p = sub.add_parser("experts-turn")
     p.add_argument("--tree", type=Path, required=True)
+    p = sub.add_parser("attn-ab")
+    p.add_argument("--parent", type=Path, required=True)
+    p.add_argument("--rounds", type=int, default=3)
+    p = sub.add_parser("attn-turn")
+    p.add_argument("--tree", type=Path, required=True)
     p = sub.add_parser("trace-clock")
     p.add_argument("--windows", type=int, default=200)
     p.add_argument("--pad", type=float, default=0.05)
@@ -694,6 +748,10 @@ def main():
         experts_ab(args.parent, args.rounds, args.seed)
     elif args.cmd == "experts-turn":
         print(json.dumps(experts_turn(args.tree, args.seed)))
+    elif args.cmd == "attn-ab":
+        attn_ab(args.parent, args.rounds, args.seed)
+    elif args.cmd == "attn-turn":
+        print(json.dumps(attn_turn(args.tree, args.seed)))
     elif args.cmd == "trace-clock":
         trace_clock(args.windows, args.pad, args.seed)
     else:

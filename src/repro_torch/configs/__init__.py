@@ -7,7 +7,8 @@ from __future__ import annotations
 import importlib
 
 ARCH_IDS = ["gemma2_2b", "mixfp4_476m", "qwen2_moe_a2_7b",
-            "qwen3_moe_30b_a3b"]
+            "qwen3_moe_30b_a3b", "phi3_medium_14b", "starcoder2_15b",
+            "h2o_danube_3_4b", "mixfp4_114m"]
 
 _ALIAS = {i.replace("_", "-"): i for i in ARCH_IDS}
 

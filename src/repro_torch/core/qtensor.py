@@ -31,7 +31,8 @@ from repro_torch.core import formats, pack as pack_lib, quantize as Q, scaling
 
 __all__ = ["BlockLayout1D", "BlockLayout2D", "QuantSpec", "QTensor",
            "PACKABLE_METHODS", "quantize", "quantize_rows",
-           "from_packed_rows", "stack", "qmm", "qmm_experts"]
+           "from_packed_rows", "stack", "qmm", "qmm_experts", "ShapeDtype",
+           "tree_spec", "tree_like"]
 
 _G = 16
 PACKABLE_METHODS = ("nvfp4", "mixfp4")
@@ -228,7 +229,9 @@ def from_packed_rows(payload: torch.Tensor, scales: torch.Tensor,
 
 
 def stack(qts: Sequence[QTensor]) -> QTensor:
-    """Stack same-layout QTensors along a new leading batch dim."""
+    """Stack same-layout QTensors along a new leading batch dim (their
+    ``scale32``s too: () each gives (N,), an expert stack's (E,) gives
+    (N, E))."""
     first = qts[0]
     for qt in qts[1:]:
         if (qt.method, qt.layout, qt.shape, qt.dtype) != \
@@ -237,7 +240,7 @@ def stack(qts: Sequence[QTensor]) -> QTensor:
     return first.replace(
         payload=torch.stack([q.payload for q in qts]),
         scales=torch.stack([q.scales for q in qts]),
-        scale32=torch.stack([q.scale32.reshape(()) for q in qts]))
+        scale32=torch.stack([q.scale32 for q in qts]))
 
 
 # ---------------------------------------------------------------------------
@@ -364,3 +367,76 @@ def qmm_experts(x: torch.Tensor, w: QTensor) -> torch.Tensor:
         x = F.pad(x, (0, kp - k_logical))
     return ops.gemm_w4a16_experts(x, w.payload, w.scales, w.scale32,
                                   n_out=n_logical)
+
+
+# ---------------------------------------------------------------------------
+# JSON-able tree specs (checkpointing: rebuild the structure without arrays)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShapeDtype:
+    """A leaf of a restore skeleton: its shape and its dtype's numpy name."""
+
+    shape: tuple
+    dtype: str
+
+
+def _layout_to_json(layout: BlockLayout) -> dict:
+    if isinstance(layout, BlockLayout2D):
+        return {"kind": "2d", "bm": layout.bm, "bn": layout.bn}
+    return {"kind": "1d", "axis": layout.axis, "block": layout.block}
+
+
+def _layout_from_json(d: dict) -> BlockLayout:
+    if d["kind"] == "2d":
+        return BlockLayout2D(d["bm"], d["bn"])
+    return BlockLayout1D(d["axis"], d["block"])
+
+
+def tree_spec(tree):
+    """JSON-able structural spec of a tree of nested dicts and lists whose
+    leaves are tensors or QTensors, the reference's format exactly: a
+    QTensor records its metadata and each child's shape and dtype name
+    (``"uint8"``, ``"float32"``, ...), ``pspec`` always null (the port
+    declares no sharding); dicts keep their insertion order."""
+    if isinstance(tree, QTensor):
+        return {"__qtensor__": {
+            "method": tree.method,
+            "layout": _layout_to_json(tree.layout),
+            "shape": list(tree.shape),
+            "dtype": tree.dtype,
+            "pspec": None,
+            "children": {
+                name: {"shape": list(getattr(tree, name).shape),
+                       "dtype": _dtype_name(getattr(tree, name).dtype)}
+                for name in ("payload", "scales", "scale32")},
+        }}
+    if isinstance(tree, dict):
+        return {"__dict__": {k: tree_spec(v) for k, v in tree.items()}}
+    if isinstance(tree, (list, tuple)):
+        return {"__list__": [tree_spec(v) for v in tree],
+                "tuple": isinstance(tree, tuple)}
+    return {"__leaf__": None}
+
+
+def tree_like(spec):
+    """Inverse of :func:`tree_spec`: a skeleton with the same structure.
+    QTensor children are :class:`ShapeDtype`s where the spec records them
+    (``0`` otherwise, as in the reference), other leaves ``0``; a spec's
+    ``pspec`` is ignored."""
+    if "__qtensor__" in spec:
+        m = spec["__qtensor__"]
+        kids = m.get("children")
+        if kids:
+            children = [ShapeDtype(tuple(kids[n]["shape"]), kids[n]["dtype"])
+                        for n in ("payload", "scales", "scale32")]
+        else:
+            children = [0, 0, 0]
+        return QTensor(*children, method=m["method"],
+                       layout=_layout_from_json(m["layout"]),
+                       shape=tuple(m["shape"]), dtype=m["dtype"])
+    if "__dict__" in spec:
+        return {k: tree_like(v) for k, v in spec["__dict__"].items()}
+    if "__list__" in spec:
+        seq = [tree_like(v) for v in spec["__list__"]]
+        return tuple(seq) if spec.get("tuple") else seq
+    return 0

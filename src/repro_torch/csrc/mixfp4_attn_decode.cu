@@ -40,7 +40,13 @@
 //   5. p * V into per-lane registers (8 dims of every head).
 // After one barrier the CTA merges its 8 warps' states in warp order (m =
 // max, weights expf(m_w - m)) and writes (acc[g][dh], m[g], l[g]) to the
-// f32 workspace.  The last CTA of a (sequence, kv head) to take a ticket
+// f32 workspace.  A group of more than MAXG = 8 heads (StarCoder2-15B: 48
+// heads over 4 kv heads, g = 12) is walked in passes of at most 8 heads
+// (the PASSES instantiation): the keys are staged once, and each pass runs
+// steps 3-5 and the warp merge for its heads from the staged bytes.  The
+// registers of a pass are those of a group of 8; a group of 8 or fewer is
+// compiled without the pass loop, the code and arithmetic it always was.
+// The last CTA of a (sequence, kv head) to take a ticket
 // (__threadfence + atomicAdd on its counter, which it resets) merges the
 // splits the same way, in split order, and writes acc / l where l > 0.
 // Only splits that hold a valid key take part, so an empty split can
@@ -72,7 +78,7 @@ constexpr int BS = 32;           // keys per warp
 constexpr int SPLIT_S = 256;     // keys per split (kernels/tuning.py)
 static_assert(SPLIT_S == NW * BS, "a split is one 32-key block per warp");
 constexpr int KG = 4;            // keys per reduce-scatter
-constexpr int MAXG = 8;          // largest query-head group per kv head
+constexpr int MAXG = 8;          // most query heads in one pass
 constexpr int MAX_DH = 256;
 constexpr float NEG_INF = -1e30f;
 
@@ -200,28 +206,62 @@ __device__ __forceinline__ void lut8(float (&v)[8], const float* lut,
 }
 
 // Shared memory: per warp its keys' K payload (BS x dh/2), K scales
-// (BS x dh/16), V payload and V scales, which the merge of the warps
-// reuses (NW x g x dh acc, then NW x g x (m, l)); then the nibble table and
-// per warp its scores (g x BS, then p).
+// (BS x dh/16), V payload and V scales; the merge of the warps (NW x gp x
+// dh acc, then NW x gp x (m, l), gp heads of one pass: g, or MAXG when
+// the group takes passes), which reuses the staging when there is one
+// pass and follows it when a later pass still reads the staged keys
+// (its offset, a multiple of 16, is then merge_offset); then the nibble
+// table and per warp its scores (gp x BS, then p).
 __host__ __device__ inline size_t warp_stage_bytes(int dh) {
   return static_cast<size_t>(BS) * 2 * (dh / 2 + dh / 16);
 }
 
-__host__ __device__ inline size_t stage_bytes(int dh, int g) {
+__host__ __device__ inline size_t merge_offset(int dh) {
+  return NW * warp_stage_bytes(dh);
+}
+
+template <bool PASSES>
+__host__ __device__ inline size_t stage_bytes(int dh, int gp) {
   const size_t stage = NW * warp_stage_bytes(dh);
-  const size_t merge = sizeof(float) * NW * g * (dh + 2);
+  const size_t merge = sizeof(float) * NW * gp * (dh + 2);
+  if (PASSES) return (stage + merge + 15) / 16 * 16;
   return (stage > merge ? stage : merge + 15) / 16 * 16;
 }
 
-__host__ __device__ inline size_t smem_bytes(int dh, int g) {
-  return stage_bytes(dh, g) + sizeof(float) * (32 + NW * g * BS);
+template <bool PASSES>
+__host__ __device__ inline size_t smem_bytes(int dh, int gp) {
+  return stage_bytes<PASSES>(dh, gp) + sizeof(float) * (32 + NW * gp * BS);
+}
+
+// One pass's start: q of heads h_first .. h_first + gc - 1 of sequence b
+// (this lane's 8 dims; zeros past gc), and the empty softmax state.
+template <int G>
+__device__ __forceinline__ void load_pass(float (&qr)[G][8],
+                                          float (&acc)[G][8],
+                                          float (&m_w)[G], float (&l_w)[G],
+                                          const float* __restrict__ q, int b,
+                                          int h, int h_first, int gc,
+                                          int lane, bool act, int dh) {
+#pragma unroll
+  for (int hh = 0; hh < G; ++hh) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      qr[hh][i] = act && hh < gc
+                      ? q[(static_cast<size_t>(b) * h + h_first + hh) * dh +
+                          lane * 8 + i]
+                      : 0.0f;
+      acc[hh][i] = 0.0f;
+    }
+    m_w[hh] = NEG_INF;
+    l_w[hh] = 0.0f;
+  }
 }
 
 // s_len: logical rows per sequence (S, or max_pages * page_len);
 // wp, ws: copy widths of the payload and scale rows.  At dh = 256 the
 // shared memory admits two CTAs per SM, so the launch bounds let each
 // thread have 128 registers (without them ptxas kept 64 and spilled).
-template <int G, class Rows>
+template <int G, bool PASSES, class Rows>
 __global__ void __launch_bounds__(NT, 2) attn_decode_kernel(
     const float* __restrict__ q, const uint8_t* __restrict__ kp,
     const uint8_t* __restrict__ ks, const uint8_t* __restrict__ vp,
@@ -252,8 +292,9 @@ __global__ void __launch_bounds__(NT, 2) attn_decode_kernel(
   uint8_t* ksc = kpay + BS * pb;
   uint8_t* vpay = ksc + BS * sb;
   uint8_t* vsc = vpay + BS * pb;
-  float* lut = reinterpret_cast<float*>(smem + stage_bytes(dh, g));
-  float* sc = lut + 32 + warp * g * BS;   // this warp's g x BS scores
+  const int gp = PASSES ? G : g;  // heads of a full pass
+  float* lut = reinterpret_cast<float*>(smem + stage_bytes<PASSES>(dh, gp));
+  float* sc = lut + 32 + warp * gp * BS;  // this warp's gp x BS scores
 
   // this warp's keys: j0 .. j0 + nw - 1
   const int j0 = a + warp * BS, nw = max(0, min(BS, e - j0));
@@ -271,135 +312,138 @@ __global__ void __launch_bounds__(NT, 2) attn_decode_kernel(
   cp_async_commit();
   if (tid < 32) lut[tid] = decode_nibble(tid & 15, tid >> 4);
 
-  // lane l owns head dims [8l, 8l + 8) of every head of the group
+  // lane l owns head dims [8l, 8l + 8) of every head of the pass; a pass
+  // takes heads h0 .. h0 + gc - 1 of the group (PASSES: passes of G heads;
+  // otherwise one pass, gc = g <= G)
   const bool act = lane * 8 < dh;
   float qr[G][8], acc[G][8], m_w[G], l_w[G];
-#pragma unroll
-  for (int hh = 0; hh < G; ++hh) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      qr[hh][i] = act && hh < g
-                      ? q[(static_cast<size_t>(b) * h + kh * g + hh) * dh +
-                          lane * 8 + i]
-                      : 0.0f;
-      acc[hh][i] = 0.0f;
-    }
-    m_w[hh] = NEG_INF;
-    l_w[hh] = 0.0f;
-  }
+  int h0 = 0, gc = PASSES ? min(G, g) : g;
+  load_pass<G>(qr, acc, m_w, l_w, q, b, h, kh * g, gc, lane, act, dh);
   const float s32k = s32[0], s32v = s32[1];
   __syncthreads();                // the nibble table
 
-  if (nw > 0) {
-    cp_async_wait<1>();
-    __syncwarp();
-    // scores, KG keys at a time: after the reduce-scatter lane l holds
-    // the sum of product (l >> (5 - log2 KG*G)) = k * G + hh
-    for (int k0 = 0; k0 < nw; k0 += KG) {
-      float dot[KG * G];
+  while (true) {
+    if (nw > 0) {
+      cp_async_wait<1>();
+      __syncwarp();
+      // scores, KG keys at a time: after the reduce-scatter lane l holds
+      // the sum of product (l >> (5 - log2 KG*G)) = k * G + hh
+      for (int k0 = 0; k0 < nw; k0 += KG) {
+        float dot[KG * G];
 #pragma unroll
-      for (int k = 0; k < KG; ++k) {
-        const int t = k0 + k;
+        for (int k = 0; k < KG; ++k) {
+          const int t = k0 + k;
 #pragma unroll
-        for (int hh = 0; hh < G; ++hh) dot[k * G + hh] = 0.0f;
-        if (act && t < nw) {
+          for (int hh = 0; hh < G; ++hh) dot[k * G + hh] = 0.0f;
+          if (act && t < nw) {
+            const uint32_t word =
+                *reinterpret_cast<const uint32_t*>(kpay + t * pb + lane * 4);
+            const uint32_t sbyte = ksc[t * sb + (lane >> 1)];
+            float v[8];
+            lut8(v, lut, word, sbyte);
+            const float s = e4m3_value(sbyte & 0x7F) * s32k;
+#pragma unroll
+            for (int hh = 0; hh < G; ++hh) {
+              float d = 0.0f;
+#pragma unroll
+              for (int i = 0; i < 8; ++i) d += qr[hh][i] * v[i];
+              dot[k * G + hh] = d * s;
+            }
+          }
+        }
+        reduce_scatter<KG * G, KG * G>(dot, lane);
+        constexpr int SHIFT = 5 - ilog2(KG * G);
+        const int jj = lane >> SHIFT, k = jj / G, hh = jj - k * G;
+        if ((lane & ((1 << SHIFT) - 1)) == 0 && hh < gc && k0 + k < nw) {
+          float s = dot[0] * scale;
+          if (softcap > 0.0f) s = softcap * tanhf(s * inv_cap);
+          sc[hh * BS + k0 + k] = s;
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int hh = 0; hh < G; ++hh) {
+        if (hh < gc) {
+          const float s = lane < nw ? sc[hh * BS + lane] : NEG_INF;
+          m_w[hh] = warp_max(s);
+          const float p = lane < nw ? expf(s - m_w[hh]) : 0.0f;
+          l_w[hh] = warp_sum(p);
+          sc[hh * BS + lane] = p;
+        }
+      }
+      cp_async_wait<0>();
+      __syncwarp();
+      if (act) {
+#pragma unroll 4
+        for (int t = 0; t < nw; ++t) {
           const uint32_t word =
-              *reinterpret_cast<const uint32_t*>(kpay + t * pb + lane * 4);
-          const uint32_t sbyte = ksc[t * sb + (lane >> 1)];
+              *reinterpret_cast<const uint32_t*>(vpay + t * pb + lane * 4);
+          const uint32_t sbyte = vsc[t * sb + (lane >> 1)];
           float v[8];
           lut8(v, lut, word, sbyte);
-          const float s = e4m3_value(sbyte & 0x7F) * s32k;
+          const float s = e4m3_value(sbyte & 0x7F) * s32v;
 #pragma unroll
           for (int hh = 0; hh < G; ++hh) {
-            float d = 0.0f;
+            const float w = hh < gc ? sc[hh * BS + t] * s : 0.0f;
 #pragma unroll
-            for (int i = 0; i < 8; ++i) d += qr[hh][i] * v[i];
-            dot[k * G + hh] = d * s;
+            for (int i = 0; i < 8; ++i) acc[hh][i] += w * v[i];
           }
         }
       }
-      reduce_scatter<KG * G, KG * G>(dot, lane);
-      constexpr int SHIFT = 5 - ilog2(KG * G);
-      const int jj = lane >> SHIFT, k = jj / G, hh = jj - k * G;
-      if ((lane & ((1 << SHIFT) - 1)) == 0 && hh < g && k0 + k < nw) {
-        float s = dot[0] * scale;
-        if (softcap > 0.0f) s = softcap * tanhf(s * inv_cap);
-        sc[hh * BS + k0 + k] = s;
-      }
     }
-    __syncwarp();
+
+    // merge the warps in warp order into the split's state (one pass: the
+    // merge reuses the staging, which this barrier frees; more: it waits
+    // for the last pass's merge to have been read)
+    __syncthreads();
+    float* red = reinterpret_cast<float*>(smem +
+                                          (PASSES ? merge_offset(dh) : 0));
+    float* wst = red + NW * gp * dh;             // NW x gp x (m, l)
 #pragma unroll
     for (int hh = 0; hh < G; ++hh) {
-      if (hh < g) {
-        const float s = lane < nw ? sc[hh * BS + lane] : NEG_INF;
-        m_w[hh] = warp_max(s);
-        const float p = lane < nw ? expf(s - m_w[hh]) : 0.0f;
-        l_w[hh] = warp_sum(p);
-        sc[hh * BS + lane] = p;
-      }
-    }
-    cp_async_wait<0>();
-    __syncwarp();
-    if (act) {
-#pragma unroll 4
-      for (int t = 0; t < nw; ++t) {
-        const uint32_t word =
-            *reinterpret_cast<const uint32_t*>(vpay + t * pb + lane * 4);
-        const uint32_t sbyte = vsc[t * sb + (lane >> 1)];
-        float v[8];
-        lut8(v, lut, word, sbyte);
-        const float s = e4m3_value(sbyte & 0x7F) * s32v;
+      if (hh < gc) {
+        if (act) {
 #pragma unroll
-        for (int hh = 0; hh < G; ++hh) {
-          const float w = hh < g ? sc[hh * BS + t] * s : 0.0f;
-#pragma unroll
-          for (int i = 0; i < 8; ++i) acc[hh][i] += w * v[i];
+          for (int i = 0; i < 8; ++i)
+            red[(warp * gp + hh) * dh + lane * 8 + i] = acc[hh][i];
+        }
+        if (lane == 0) {
+          wst[(warp * gp + hh) * 2] = m_w[hh];
+          wst[(warp * gp + hh) * 2 + 1] = l_w[hh];
         }
       }
     }
-  }
-
-  // merge the warps in warp order into the split's state
-  __syncthreads();                // staging free for reuse
-  float* red = reinterpret_cast<float*>(smem);   // NW x g x dh
-  float* wst = red + NW * g * dh;                // NW x g x (m, l)
-#pragma unroll
-  for (int hh = 0; hh < G; ++hh) {
-    if (hh < g) {
-      if (act) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          red[(warp * g + hh) * dh + lane * 8 + i] = acc[hh][i];
-      }
-      if (lane == 0) {
-        wst[(warp * g + hh) * 2] = m_w[hh];
-        wst[(warp * g + hh) * 2 + 1] = l_w[hh];
-      }
-    }
-  }
-  __syncthreads();
-  const size_t pitch = static_cast<size_t>(g) * (dh + 2);
-  float* base = work + static_cast<size_t>(bh) * nsplit * pitch;
-  float* part = base + sp * pitch;
-  for (int hh = 0; hh < g; ++hh) {
-    float m = NEG_INF;
-    for (int w = 0; w < NW; ++w) m = fmaxf(m, wst[(w * g + hh) * 2]);
-    for (int d = tid; d < dh; d += NT) {
-      float l = 0.0f, acc_o = 0.0f;
-      for (int w = 0; w < NW; ++w) {
-        const float f = expf(wst[(w * g + hh) * 2] - m);
-        l += wst[(w * g + hh) * 2 + 1] * f;
-        acc_o += red[(w * g + hh) * dh + d] * f;
-      }
-      part[hh * dh + d] = acc_o;
-      if (d == 0) {
-        part[g * dh + hh] = m;
-        part[g * dh + g + hh] = l;
+    __syncthreads();
+    const size_t pitch = static_cast<size_t>(g) * (dh + 2);
+    float* part = work + static_cast<size_t>(bh) * nsplit * pitch +
+                  sp * pitch;
+    for (int hh = 0; hh < gc; ++hh) {
+      float m = NEG_INF;
+      for (int w = 0; w < NW; ++w) m = fmaxf(m, wst[(w * gp + hh) * 2]);
+      for (int d = tid; d < dh; d += NT) {
+        float l = 0.0f, acc_o = 0.0f;
+        for (int w = 0; w < NW; ++w) {
+          const float f = expf(wst[(w * gp + hh) * 2] - m);
+          l += wst[(w * gp + hh) * 2 + 1] * f;
+          acc_o += red[(w * gp + hh) * dh + d] * f;
+        }
+        part[(h0 + hh) * dh + d] = acc_o;
+        if (d == 0) {
+          part[g * dh + h0 + hh] = m;
+          part[g * dh + g + h0 + hh] = l;
+        }
       }
     }
+    h0 += G;
+    if (!PASSES || h0 >= g) break;
+    gc = min(G, g - h0);
+    load_pass<G>(qr, acc, m_w, l_w, q, b, h, kh * g + h0, gc, lane, act,
+                 dh);
   }
   __threadfence();
   __syncthreads();
+  const size_t pitch = static_cast<size_t>(g) * (dh + 2);
+  const float* base = work + static_cast<size_t>(bh) * nsplit * pitch;
   const int first = lo / SPLIT_S, count = (hi - 1) / SPLIT_S - first + 1;
   if (tid == 0) last = atomicAdd(&counters[bh], 1) == count - 1;
   __syncthreads();
@@ -460,14 +504,14 @@ int copy_width(int row_bytes, const void* x, const void* y) {
   return 1;
 }
 
-template <int G, class Rows>
+template <int G, bool PASSES, class Rows>
 int launch_g(dim3 grid, size_t smem, cudaStream_t stream, const float* q,
              const uint8_t* kp, const uint8_t* ks, const uint8_t* vp,
              const uint8_t* vs, const int* lengths, const float* s32,
              float* out, float* work, int* counters, Rows rows, int s_len,
              int h, int hkv, int dh, int window, float scale, float softcap,
              float inv_cap) {
-  auto kern = attn_decode_kernel<G, Rows>;
+  auto kern = attn_decode_kernel<G, PASSES, Rows>;
   static size_t allowed[16] = {};   // dynamic smem opted into, per device
   int dev = 0;
   cudaGetDevice(&dev);
@@ -494,21 +538,24 @@ int launch(const float* q, const uint8_t* kp, const uint8_t* ks,
            int splits, void* stream) {
   if (b == 0) return 0;
   const int g = hkv > 0 ? h / hkv : 0;
-  if (g < 1 || g > MAXG || h % hkv || dh > MAX_DH || dh % 16 || dh <= 0 ||
+  if (g < 1 || h % hkv || dh > MAX_DH || dh % 16 || dh <= 0 ||
       split_s != SPLIT_S ||
       splits != max(1, (s_len + SPLIT_S - 1) / SPLIT_S))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(b * hkv, splits);
-  const size_t smem = smem_bytes(dh, g);
+  const bool passes = g > MAXG;
+  const size_t smem = passes ? smem_bytes<true>(dh, MAXG)
+                             : smem_bytes<false>(dh, g);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define ATTN_LAUNCH(GG)                                                   \
-  return launch_g<GG>(grid, smem, st, q, kp, ks, vp, vs, lengths, s32,    \
-                      out, work, counters, rows, s_len, h, hkv, dh,       \
-                      window, scale, softcap, inv_cap)
-  if (g == 1) ATTN_LAUNCH(1);
-  if (g == 2) ATTN_LAUNCH(2);
-  if (g <= 4) ATTN_LAUNCH(4);
-  ATTN_LAUNCH(8);
+#define ATTN_LAUNCH(GG, P)                                                \
+  return launch_g<GG, P>(grid, smem, st, q, kp, ks, vp, vs, lengths, s32, \
+                         out, work, counters, rows, s_len, h, hkv, dh,    \
+                         window, scale, softcap, inv_cap)
+  if (g == 1) ATTN_LAUNCH(1, false);
+  if (g == 2) ATTN_LAUNCH(2, false);
+  if (g <= 4) ATTN_LAUNCH(4, false);
+  if (g <= MAXG) ATTN_LAUNCH(8, false);
+  ATTN_LAUNCH(MAXG, true);        // passes of 8 heads
 #undef ATTN_LAUNCH
 }
 
@@ -517,7 +564,7 @@ int launch(const float* q, const uint8_t* kp, const uint8_t* ks,
 // q (B, H, dh) f32; K/V payload (B, S, Hkv, dh/2) u8 and scales
 // (B, S, Hkv, dh/16) u8, all contiguous; lengths (B,) i32; s32 two f32 on
 // the device (K, V); out (B, H, dh) f32.  dh <= 256, dh % 16 == 0,
-// H / Hkv <= 8.  scale = dh^-0.5; softcap 0 disables the cap.  work: f32,
+// any H / Hkv.  scale = dh^-0.5; softcap 0 disables the cap.  work: f32,
 // B * Hkv * splits * (H/Hkv) * (dh + 2) floats; counters: B * Hkv int32,
 // zero (the kernel leaves them zero).  split_s must be SPLIT_S and splits
 // ceil(S / SPLIT_S) (at least 1), as kernels/tuning.py :: attn_splits

@@ -15,6 +15,12 @@ Usage (on the GPU; ``--device cpu`` runs the kernels' plain versions):
       --arch qwen2-moe-a2.7b --kv-quant mixfp4
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch qwen3-moe-30b-a3b --smoke --device cpu --kv-quant mixfp4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
+      --save-weights build/ckpt/gemma2-2b
+
+``--save-weights DIR`` writes the packed weights as a checkpoint in the
+reference's format and exits without serving; ``ServeEngine.load_weights``
+restores it (or a checkpoint the reference wrote).
 
 Each layer's projections are packed as soon as they are drawn (unless
 ``--act-rht``, whose rotation the engine applies to dense weights), so a
@@ -90,6 +96,10 @@ def main(argv=None):
                          "than the chunk budget (bitwise-identical to "
                          "whole-prompt prefill and one prefill shape; "
                          "replaces --prefill-buckets)")
+    ap.add_argument("--save-weights", default=None, metavar="DIR",
+                    help="write the packed weights as a checkpoint to DIR "
+                         "(the reference's packed format; restore with "
+                         "ServeEngine.load_weights(DIR)) and exit")
     args = ap.parse_args(argv)
     if args.act_rht and args.act_quant not in ("mixfp4",
                                                "mixfp4-2pass-rowscale"):
@@ -132,6 +142,11 @@ def main(argv=None):
         print(f"[serve] chunked-prefill scheduler armed: admissions "
               f"prefill {engine.prefill_chunk} tokens/step interleaved "
               f"with decode")
+    if args.save_weights:
+        engine.save_weights(args.save_weights)
+        print(f"[serve] packed QTensor weights checkpointed to "
+              f"{args.save_weights}")
+        return
 
     rng = np.random.RandomState(args.seed)
     # pooled runs share a page-sized "system prompt" across requests so the

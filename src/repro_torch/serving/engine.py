@@ -30,10 +30,15 @@ count, pads and idle lanes included), so for it neither bucketing nor
 chunking leaves the streams unchanged, and its pool is a plain page
 allocator without prefix caching, as in the reference.
 
+``save_weights`` writes the packed parameters as a checkpoint in the
+reference's format (``checkpoint.CheckpointManager.save_packed``, the
+layers stacked as the reference stacks them), and ``load_weights``
+restores one, written by either package, onto the engine's device.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): the request lifecycle (queue, faults, deadlines, journal, watchdog,
-metrics, the fused -> 2-pass and paged -> fixed-slot degradation rungs),
-and mesh serving.
+metrics, retries of a checkpoint read, the fused -> 2-pass and paged ->
+fixed-slot degradation rungs), and mesh serving.
 """
 from __future__ import annotations
 
@@ -42,7 +47,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import convert, resolve_device
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import hadamard, qtensor
 from repro_torch.models import build_model
 from repro_torch.models.base import (ACT_QUANT_MODES, ActQuant, ArchConfig,
@@ -62,6 +68,8 @@ _NOT_PORTED = {
     "hung_step_budget_ms": "§1 item 4 (serving lifecycle)",
     "deadline_ms": "§1 item 4 (serving lifecycle)",
     "ttft_budget_ms": "§1 item 4 (serving lifecycle)",
+    "retry_max": "§1 item 4 (serving lifecycle: the checkpoint_read retry "
+                 "and fault boundary)",
     "mesh": "§1 item 7 (multi-GPU)",
 }
 
@@ -117,6 +125,16 @@ def _validate_act(act_quant, act_rht: bool, pack_weights: bool):
                 "pack_weights=False")
 
 
+def _packed_stats(tree) -> tuple[int, int]:
+    """(wire bytes, bf16-equivalent bytes) over the QTensor leaves of a
+    parameter tree, as ``pack_projections`` counts them."""
+    packed = dense = 0
+    for qt in _projections(tree):
+        packed += qt.nbytes
+        dense += int(np.prod(qt.shape)) * qt.batch_size() * 2
+    return packed, dense
+
+
 def _projections(tree):
     """Every packed projection leaf of a parameter tree."""
     if isinstance(tree, dict):
@@ -167,12 +185,14 @@ class ServeEngine:
                  journal_dir: str | None = None,
                  hung_step_budget_ms: float | None = None,
                  deadline_ms: float | None = None,
-                 ttft_budget_ms: float | None = None, mesh=None):
+                 ttft_budget_ms: float | None = None,
+                 retry_max: int | None = None, mesh=None):
         given = {"faults": faults is not None,
                  "journal_dir": journal_dir is not None,
                  "hung_step_budget_ms": hung_step_budget_ms is not None,
                  "deadline_ms": deadline_ms is not None,
                  "ttft_budget_ms": ttft_budget_ms is not None,
+                 "retry_max": retry_max is not None,
                  "mesh": mesh is not None}
         for arg, on in given.items():
             if on:
@@ -270,6 +290,40 @@ class ServeEngine:
             total += (leaf.nbytes if isinstance(leaf, qtensor.QTensor)
                       else leaf.numel() * leaf.element_size())
         return total
+
+    # ------------------------------------------------------------------
+    # packed-weight checkpoints, in the reference's format
+    # ------------------------------------------------------------------
+    def save_weights(self, directory: str, step: int = 0):
+        """Write the packed parameters as checkpoint ``step`` of
+        ``directory``: stacked into the reference's layout on the host,
+        then ``save_packed`` (blocking)."""
+        CheckpointManager(directory).save_packed(
+            step, convert.packed_to_stacked(self.params), blocking=True)
+
+    def load_weights(self, directory: str, step: int | None = None):
+        """Restore a packed checkpoint (the latest step by default), written
+        by this engine or by the reference's, onto the engine's device:
+        per-array digests and scale planes verified, the layers split
+        again, the storage stats recomputed from what was restored.  A read
+        that fails raises at once (the reference retries it behind its
+        fault boundary, ROADMAP §1 item 4)."""
+        restored, _ = CheckpointManager(directory).restore_packed(step)
+        if self.act_rht and not (isinstance(restored, dict)
+                                 and "rht_signs" in restored):
+            raise ValueError(
+                "act_rht=True engine restored a checkpoint with no "
+                "'rht_signs' entry: the packed weights were not "
+                "Hadamard-transformed at pack time "
+                "(pack_projections(act_rht=True)), so the activation RHT "
+                "would no longer cancel in the GEMM")
+        params = convert.packed_from_numpy(restored, self.cfg,
+                                           device=self.device)
+        _check_rht_signs(params, self.act_rht)
+        self.params = params
+        self.packed_bytes, self.dense_bytes = _packed_stats(params)
+        self.compression = (self.dense_bytes / self.packed_bytes
+                            if self.packed_bytes else 1.0)
 
     @staticmethod
     def bucket_len(p_len: int, max_len: int) -> int:

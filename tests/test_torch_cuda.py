@@ -24,7 +24,8 @@ random rows and on the MoE layer's dispatch buffers with -0.0, NaN, Inf
 and last-split-only rows (experts without a non-zero row +0, every plan
 of its decode kernel bitwise the same); an MoE decode step bitwise equal to itself
 on the same state; attention and the KV write at Qwen1.5-MoE's heads
-(dh 128, g 1).
+(dh 128, g 1); attention at StarCoder2-15B's heads (dh 128, g 12, walked
+in passes of at most 8 heads).
 """
 import functools
 
@@ -57,6 +58,8 @@ ATTN_CASES = [
     (2, 300, 1, 8, 256, 0, 50.0, [300, 257]),        # g = 8 at dh = 256
     (3, 300, 2, 2, 32, 0, 30.0, [0, 300, 1]),        # no valid key: zeros
     (4, 700, 16, 1, 128, 0, 0.0, [700, 333, 1, 512]),  # qwen2-moe heads
+    # g = 12 (starcoder2-15b heads): two passes of the query heads, 8 + 4
+    (4, 700, 4, 12, 128, 0, 0.0, [700, 333, 1, 512]),
 ]
 
 

@@ -40,6 +40,20 @@ KN = [(2048, 48), (1408, 32)]          # qwen2-moe's K, narrow N
 TOKENS = {1: 4, 5: 4, 64: 756}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module's torch work, the count it had
+    restored after.  The suite runs several test processes side by side,
+    and with one thread per core in every process the many small ops here
+    spend their time contending for the cores (six copies of this module
+    side by side on 8 cores: not done after 900 s with 8 threads each,
+    17 s each with one)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @functools.lru_cache(maxsize=None)
 def _stack(k: int, n: int):
     """64 stored experts of seeded random weights, the 4 dummies zero."""
