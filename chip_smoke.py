@@ -81,7 +81,28 @@ Phases (any failed check raises, so the script exits non-zero):
    none on Danube's), every logit row finite, and in five traced decode
    steps the wrappers' counts equal to the trace's kernel rows;
 4d. each of the three cut to 2 layers, card vs CPU logits (StarCoder2
-   also through a paged pool, bitwise the fixed-slot card run).
+   also through a paged pool, bitwise the fixed-slot card run);
+3L. the serving lifecycle at full width and depth, on the weights and
+   streams of phases 3, 3b and 3m, 8 new tokens per request but in (c)
+   (``[lifecycle]``): (a) gemma2-2b W4A16 in fixed slots, the six phase-3
+   requests through ``submit`` with ``max_queue=6`` on the system clock:
+   streams equal phase 3's first 8 tokens, TTFT and ITL p50/p99 and the
+   queue gauges; (b) the same engine under ``schedule_for_seed`` 0 and 1
+   (a NaN row, a prefill error, slow decodes): ``check_invariants``
+   against (a) finds no violation; (c) a 300-page pool, too small for the
+   4500-token request beside three mid-stream ones, with
+   ``degrade_after_deferrals=1``: the paged -> fixed-slot rung fires once,
+   the six streams equal phase 3's whole 32 tokens, no page stays active,
+   and the K/V bytes of the migrated requests that differ from (a)'s rows
+   are counted (the rung is not bitwise in them, ROADMAP §3); (d) W4A4 +
+   RHT (phase 3b's weights) with a ``dispatch`` fault at the second
+   decode: the fused rung fires, the streams equal phase 3b's first 8
+   tokens, and every step's launch counts are exact on both sides of it;
+   (e) qwen2-moe-a2.7b (phase 3m's weights) at B = 4 with a NaN-poisoned
+   decode row: the victim FAILED (``nan_logits``) with a strict prefix,
+   the survivors equal phase 3m's first 8 tokens; (f) phase 5's restore
+   with one transient ``checkpoint_read`` fault: retried once, the bytes
+   and fingerprint unchanged.
 
 Each kernel's launch count comes from the path run that drives it, with
 the counts set to 0 just before that run.  The line before the last is a
@@ -2074,6 +2095,280 @@ DENSE = {"phi3-medium-14b": ("phi3", "mixfp4"),
 
 
 # ---------------------------------------------------------------------------
+# phase 3L: the serving lifecycle at full width
+# ---------------------------------------------------------------------------
+LIFE_NEW = 8                       # new tokens per request in phase 3L
+# pages of the pool that must defer the 4500-token request (282 pages)
+# while the first three requests (90-116 pages) decode, yet could hold it
+# alone
+LIFE_POOL = 300
+
+
+def first_tokens(streams: dict) -> dict:
+    return {uid: s[:LIFE_NEW] for uid, s in streams.items()}
+
+
+def life_engine(dev, params, arch: str = "gemma2-2b", **kw):
+    """A four-slot engine over the packed MixFP4 KV cache at full width,
+    on packed weights an earlier phase holds."""
+    from repro_torch import configs
+    from repro_torch.serving.engine import ServeEngine
+    return ServeEngine(configs.config(arch), params, batch_size=4,
+                       max_len=8192, kv_quant="mixfp4", device=dev, **kw)
+
+
+def capture_rows(engine, uids) -> dict:
+    """uid -> the packed K/V bytes of every row that request wrote, read
+    from its slot as it finishes (the engine's terminal transition is
+    wrapped; the slot is reused afterwards)."""
+    rows = {}
+    finish = engine._finish_request
+
+    def capture(i, state, reason, error=None):
+        req = engine.slots[i]
+        if req.uid in uids:
+            rows[req.uid] = {k: v.clone() for k, v in kv_rows(
+                engine, i, int(engine.lengths[i])).items()}
+        finish(i, state, reason, error=error)
+
+    engine._finish_request = capture
+    return rows
+
+
+def drain(engine, streams: dict, steps: int | None = None) -> dict:
+    """Step ``engine`` until it has no work (or ``steps`` times), adding
+    the emitted tokens to ``streams``."""
+    n = 0
+    while engine.has_work() and (steps is None or n < steps):
+        for uid, tok in engine.step():
+            streams.setdefault(uid, []).append(tok)
+        n += 1
+    return streams
+
+
+def lifecycle_dense(dev, seed: int, params, streams: dict, smi: str):
+    """Phase 3L (a)-(c) on gemma2-2b's W4A16 weights (phase 3's): (a) the
+    six requests through ``submit`` with ``max_queue=6`` on the system
+    clock, streams equal to phase 3's first 8 tokens, TTFT/ITL and the
+    queue gauges; (b) the chaos schedules of seeds 0 and 1, no violated
+    invariant against (a); (c) a pool too small for the mix with
+    ``degrade_after_deferrals=1``: the paged -> fixed-slot rung fires
+    while three requests are mid-stream, every stream equal to phase 3's
+    whole 32 tokens, and the K/V bytes of the migrated requests held
+    against (a)'s rows."""
+    from repro_torch import configs
+    from repro_torch.serving import faults
+    from repro_torch.serving.engine import RequestState
+
+    cfg = configs.config("gemma2-2b")
+    want = first_tokens(streams)
+    # (a) the bounded queue on the system clock
+    eng = life_engine(dev, params, max_queue=6)
+    rows_a = capture_rows(eng, {0, 1, 2})
+    reqs = shared_prefix_requests(cfg.vocab, seed, LIFE_NEW)
+    for r in reqs:
+        eng.submit(r)
+    depth = []
+    t = time.perf_counter()
+    while eng.has_work():
+        eng.step()
+        depth.append(int(eng.metrics_report()["gauges"]["queue_depth"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    got = {r.uid: list(r.generated) for r in reqs}
+    if got != want or any(r.state is not RequestState.FINISHED
+                          for r in reqs):
+        raise AssertionError(f"[lifecycle] (a) streams {got} differ from "
+                             "phase 3's first tokens, or a request did not "
+                             "finish")
+    rep = eng.metrics_report()
+    ttft, itl = rep["histograms"]["ttft_ms"], rep["histograms"]["itl_ms"]
+    log(f"[lifecycle] (a) gemma2-2b W4A16, fixed slots, system clock, "
+        f"max_queue=6: six requests submitted at once, {LIFE_NEW} new "
+        f"tokens each, streams equal phase 3's first {LIFE_NEW} tokens; "
+        f"{wall:.2f} s; TTFT p50 {ttft['p50']:.2f} ms p99 "
+        f"{ttft['p99']:.2f} ms (n={ttft['count']}); ITL p50 "
+        f"{itl['p50']:.2f} ms p99 {itl['p99']:.2f} ms (n={itl['count']}); "
+        f"queue depth after each step {depth}, gauges "
+        f"{ {k: rep['gauges'][k] for k in ('queue_depth', 'max_queue', 'active_slots')} }; "
+        f"card {smi}")
+    del eng
+    # (b) seeded chaos schedules against (a)
+    prompts = [r.prompt for r in reqs]
+    for s in (0, 1):
+        inj = faults.FaultInjector(s, faults.schedule_for_seed(
+            s, n_requests=len(prompts)))
+        eng = life_engine(dev, params, max_queue=6, faults=inj)
+        out = faults.drive(eng, prompts, max_new_tokens=LIFE_NEW)
+        bad = faults.check_invariants({"streams": want}, out, inj,
+                                      eng.pool_report())
+        if bad:
+            raise AssertionError(f"[lifecycle] (b) seed {s}: {bad}")
+        log(f"[lifecycle] (b) seed {s}: schedule_for_seed, {len(inj.log)} "
+            f"events {inj.summary()['by_kind']}; states "
+            f"{ {u: str(st) for u, st in out['states'].items()} }; no "
+            f"violated invariant against (a); counters {dict(eng.counters)}")
+        del eng
+    # (c) the paged -> fixed-slot rung with three requests mid-stream
+    eng = life_engine(dev, params, max_queue=6, kv_pool=LIFE_POOL,
+                      kv_page_len=PAGE_LEN, degrade_after_deferrals=1)
+    rows_c = capture_rows(eng, {0, 1, 2})
+    reqs = shared_prefix_requests(cfg.vocab, seed)
+    got = {}
+    for r in reqs[:3]:
+        eng.submit(r)
+    drain(eng, got, steps=2)
+    held = eng.pool_report()
+    for r in reqs[3:]:
+        eng.submit(r)
+    drain(eng, got)
+    if eng.counters["degraded_paged_to_fixed"] != 1 or got != streams:
+        raise AssertionError(f"[lifecycle] (c) counters "
+                             f"{dict(eng.counters)}; streams {got} vs "
+                             f"{streams}")
+    if eng.pool_report() is not None or "pages" in eng.cache:
+        raise AssertionError("[lifecycle] (c) the engine still holds a "
+                             "pool after the rung")
+    differ = total = layer0 = 0
+    for uid in (0, 1, 2):
+        for key, a in rows_a[uid].items():
+            # (a)'s rows: the prompt and its first 7 generated tokens
+            c = rows_c[uid][key][:, :a.shape[1]]
+            ne = a != c
+            differ += int(ne.sum())
+            layer0 += int(ne[0].sum())
+            total += a.numel()
+    log(f"[lifecycle] (c) pool of {LIFE_POOL} pages: {held['pages_active']} "
+        f"pages active under three mid-stream requests, the 4500-token "
+        f"admission deferred {reqs[3]._deferrals} time(s), "
+        f"degraded_paged_to_fixed=1; after the drain no pool (0 pages "
+        f"active) and all six streams equal phase 3's, all "
+        f"{len(streams[0])} tokens; K/V bytes of the three migrated "
+        f"requests (history re-prefilled at once) that differ from (a)'s "
+        f"rows (prompt and first {LIFE_NEW - 1} generated, written one "
+        f"decode at a time): {differ} of {total} ({layer0} in layer 0)")
+
+
+def w4a4_pass(n_l: int, mode: str, decode: bool) -> dict:
+    """Launches of one W4A4 + RHT model pass: per projection the fused
+    GEMM and its row scale, or after the fused rung the RHT, the row
+    quantizer and the packed GEMM; one KV write per layer, and one
+    attention launch per layer on a decode pass."""
+    from repro_torch.kernels import ops
+
+    want = dict.fromkeys(ops.KERNELS, 0)
+    if mode == "mixfp4":
+        names = ("mixfp4_gemm_w4a4_fused", "fwht_row_scale")
+    else:
+        names = ("fwht_rows", "mixfp4_quant_rows", "mixfp4_gemm_w4a4")
+    for name in names:
+        want[name] = 7 * n_l
+    want["mixfp4_quant_kv"] = n_l
+    want["mixfp4_attn_decode"] = n_l if decode else 0
+    return want
+
+
+def step_w4a4_exact(eng) -> tuple[dict, collections.Counter]:
+    """Step a W4A4 + RHT engine (fixed slots) until it has no work, each
+    step's launches exactly its passes' (:func:`w4a4_pass`, in the mode
+    before the step for its prefills and after it for its decode, since
+    the fused rung fires inside the decode).  Returns the emitted streams
+    and the decode steps run in each ``act_quant`` mode."""
+    from repro_torch.kernels import ops
+
+    n_l = eng.cfg.n_layers
+    streams, sides = {}, collections.Counter()
+    ops.reset_launch_counts()
+    while eng.has_work():
+        before, mode = ops.launch_counts(), eng.act_quant
+        n_pre, n_dec = eng.prefill_dispatches, eng.decode_steps
+        for uid, tok in eng.step():
+            streams.setdefault(uid, []).append(tok)
+        n_pre, n_dec = eng.prefill_dispatches - n_pre, eng.decode_steps - n_dec
+        pre = w4a4_pass(n_l, mode, False)
+        dec = w4a4_pass(n_l, eng.act_quant, True)
+        want = {k: n_pre * pre[k] + n_dec * dec[k] for k in pre}
+        got = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        if got != want:
+            raise AssertionError(f"step launches {got}, expected {want} "
+                                 f"({n_pre} prefill, {n_dec} decode "
+                                 f"passes, {mode} -> {eng.act_quant})")
+        sides[eng.act_quant] += n_dec
+    return streams, sides
+
+
+def lifecycle_fused_rung(dev, seed: int, params, streams: dict):
+    """Phase 3L (d): gemma2-2b on W4A4 + RHT (phase 3b's weights) with one
+    injected ``dispatch`` fault at the second decode: the engine moves to
+    ``mixfp4-2pass-rowscale``, the streams equal phase 3b's first 8
+    tokens, and every step's launches are exact on both sides of the
+    rung."""
+    from repro_torch import configs
+    from repro_torch.serving import faults
+
+    cfg = configs.config("gemma2-2b")
+    inj = faults.FaultInjector(0, [faults.FaultRule(
+        "decode", "dispatch", at=(1,), times=1)])
+    eng = life_engine(dev, params, act_quant="mixfp4", act_rht=True,
+                      faults=inj)
+    reqs = shared_prefix_requests(cfg.vocab, seed, LIFE_NEW)
+    for r in reqs:
+        eng.submit(r)
+    _, sides = step_w4a4_exact(eng)
+    got = {r.uid: list(r.generated) for r in reqs}
+    if got != first_tokens(streams) or \
+            eng.act_quant != "mixfp4-2pass-rowscale" or \
+            eng.counters["degraded_fused_to_2pass"] != 1 or len(sides) != 2:
+        raise AssertionError(f"[lifecycle] (d) act_quant {eng.act_quant}, "
+                             f"counters {dict(eng.counters)}, decode steps "
+                             f"{dict(sides)}; streams {got}")
+    log(f"[lifecycle] (d) gemma2-2b W4A4 + RHT, decode dispatch fault at "
+        f"the second decode: fused -> {eng.act_quant}; decode steps per "
+        f"side {dict(sides)}; every step's launches exact (per pass and "
+        f"layer: fused 7 mixfp4_gemm_w4a4_fused + 7 fwht_row_scale, then "
+        f"7 fwht_rows + 7 mixfp4_quant_rows + 7 mixfp4_gemm_w4a4; 1 "
+        f"mixfp4_quant_kv, and 1 mixfp4_attn_decode per decode pass); "
+        f"streams equal phase 3b's first {LIFE_NEW} tokens")
+
+
+def lifecycle_moe_poison(dev, seed: int, params, streams: dict):
+    """Phase 3L (e): qwen2-moe-a2.7b W4A16 at B = 4 with one poisoned
+    decode row: the victim ends FAILED (``nan_logits``) with a strict
+    prefix of its stream, the survivors equal phase 3m's first 8 tokens
+    (at B <= 4 the capacity, 4, drops no choice, so no row couples)."""
+    from repro_torch import configs
+    from repro_torch.serving import faults
+    from repro_torch.serving.engine import RequestState
+
+    arch = "qwen2-moe-a2.7b"
+    cfg = configs.config(arch)
+    inj = faults.FaultInjector(seed, [faults.FaultRule("decode", "nan",
+                                                       at=(1,))])
+    eng = life_engine(dev, params, arch=arch, faults=inj)
+    prompts = [r.prompt for r in shared_prefix_requests(cfg.vocab, seed,
+                                                        LIFE_NEW)]
+    out = faults.drive(eng, prompts, max_new_tokens=LIFE_NEW)
+    want = first_tokens(streams)
+    (victim,) = inj.fatal_victims()
+    vs = out["streams"][victim]
+    if (out["states"][victim], out["reasons"][victim]) != (
+            RequestState.FAILED, "nan_logits") or \
+            vs != want[victim][:len(vs)] or len(vs) >= LIFE_NEW:
+        raise AssertionError(f"[lifecycle] (e) victim {victim}: "
+                             f"{out['states'][victim]} "
+                             f"{out['reasons'][victim]} {vs}")
+    for uid, s in out["streams"].items():
+        if uid != victim and (s != want[uid] or out["states"][uid]
+                              is not RequestState.FINISHED):
+            raise AssertionError(f"[lifecycle] (e) survivor {uid}: {s} vs "
+                                 f"{want[uid]}")
+    log(f"[lifecycle] (e) qwen2-moe-a2.7b W4A16, B=4, a NaN-poisoned "
+        f"decode row: uid {victim} FAILED (nan_logits) after {len(vs)} "
+        f"tokens, a strict prefix; the five survivors equal phase 3m's "
+        f"first {LIFE_NEW} tokens")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: a packed checkpoint round trip at gemma2-2b width
 # ---------------------------------------------------------------------------
 CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
@@ -2120,6 +2415,7 @@ def checkpoint_round_trip(dev, seed: int, params, streams: dict):
     from repro_torch.checkpoint import CheckpointManager, manager
     from repro_torch.models import build_model
     from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.faults import FaultInjector, FaultRule
 
     cfg = configs.config("gemma2-2b")
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
@@ -2133,12 +2429,19 @@ def checkpoint_round_trip(dev, seed: int, params, streams: dict):
     step_dir = os.path.join(d, "step_0000000000")
     n_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
                   for f in os.listdir(step_dir))
+    # the first read fails once (an injected transient): the engine
+    # backs off on the injector's clock and reads again
     loader = ServeEngine(cfg, build_model(cfg).init(
-        seed + 1, device=dev, pack="mixfp4"), **kw)
+        seed + 1, device=dev, pack="mixfp4"), **kw,
+        faults=FaultInjector(0, [FaultRule("checkpoint_read", "transient",
+                                           at=(0,))]))
     t = time.perf_counter()
     loader.load_weights(d)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t
+    if loader.counters["retries:checkpoint_read"] != 1:
+        raise AssertionError(f"checkpoint_read retries: "
+                             f"{dict(loader.counters)}")
     want, got = _leaf_bytes(saver.params), _leaf_bytes(loader.params)
     if len(want) != len(got) or not all(
             torch.equal(a, b) for a, b in zip(want, got)):
@@ -2169,20 +2472,26 @@ def checkpoint_round_trip(dev, seed: int, params, streams: dict):
         f"of packed projections, the rest the f32 embedding and norms); "
         f"save_weights {save_s:.2f} s ({n_bytes / save_s / 1e9:.2f} GB/s), "
         f"load_weights into a fresh engine {load_s:.2f} s "
-        f"({n_bytes / load_s / 1e9:.2f} GB/s); every packed byte equal, "
+        f"({n_bytes / load_s / 1e9:.2f} GB/s), its first read failed by "
+        f"an injected transient and retried once (retries:checkpoint_read"
+        f"=1, [lifecycle] (f)), so two reads; every packed byte equal, "
         f"fingerprint {fp} equal; the six phase-3 streams equal phase 3's "
         f"token for token")
     for plane, fix, err, what in (("scales", True, ValueError, "0x80"),
                                   ("payload", False, IOError, "payload")):
         bad = os.path.join(CKPT_DIR, f"bad-{plane}")
         corrupt_copy(d, bad, plane, fix)
+        retries = loader.counters["retries:checkpoint_read"]
         try:
             loader.load_weights(bad)
         except err as e:
             if CKPT_ARRAY not in str(e) or what not in str(e):
                 raise AssertionError(f"corrupt {plane}: {e}") from e
+            # an IOError is an OSError, which the read boundary retries
+            retries = loader.counters["retries:checkpoint_read"] - retries
             log(f"[checkpoint] a copy with a corrupt {plane} byte of "
-                f"{CKPT_ARRAY}: {type(e).__name__}: {str(e)[:110]}...")
+                f"{CKPT_ARRAY}: {type(e).__name__} after {retries} "
+                f"retries: {str(e)[:110]}...")
         else:
             raise AssertionError(f"a corrupt {plane} byte was restored")
     shutil.rmtree(CKPT_DIR)
@@ -2233,11 +2542,13 @@ def main():
                              "whole-prompt ones")
     log("[serve-paged] all six streams equal phase 3's token for token")
     checkpoint_round_trip(dev, args.seed, gemma, fixed["streams"])
+    lifecycle_dense(dev, args.seed, gemma, fixed["streams"], smi)
     del gemma
     torch.cuda.empty_cache()
     w4a4 = serve_path(dev, args.seed, "[serve-w4a4]", act_quant="mixfp4",
                       act_rht=True)
-    del w4a4["params"]
+    lifecycle_fused_rung(dev, args.seed, w4a4.pop("params"), w4a4["streams"])
+    torch.cuda.empty_cache()
     paths = {"w4a16": fixed["counts"], "w4a4-rht": w4a4["counts"],
              "paged-chunked": paged["counts"]}
     card_vs_cpu(dev, args.seed)
@@ -2249,7 +2560,8 @@ def main():
     moe_paged = serve_path(dev, args.seed, "[serve-moe-paged]", arch=moe,
                            params=moe_fixed.pop("params"), kv_pool=2049,
                            kv_page_len=PAGE_LEN)
-    del moe_paged["params"]
+    lifecycle_moe_poison(dev, args.seed, moe_paged.pop("params"),
+                         moe_fixed["streams"])
     if moe_paged["streams"] != moe_fixed["streams"]:
         raise AssertionError("MoE pool streams differ from the fixed-slot "
                              "ones")

@@ -17,10 +17,20 @@ Usage (on the GPU; ``--device cpu`` runs the kernels' plain versions):
       --arch qwen3-moe-30b-a3b --smoke --device cpu --kv-quant mixfp4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
       --save-weights build/ckpt/gemma2-2b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
+      --smoke --device cpu --max-queue 2 --deadline-ms 1e6 \
+      --inject-faults "0:decode=slow:5"
 
 ``--save-weights DIR`` writes the packed weights as a checkpoint in the
 reference's format and exits without serving; ``ServeEngine.load_weights``
 restores it (or a checkpoint the reference wrote).
+
+Requests ride the engine's bounded admission queue (``--max-queue``;
+``submit`` until backpressure, then ``step``), with optional default
+deadlines (``--deadline-ms``, ``--ttft-budget-ms``) and a seeded fault
+schedule (``--inject-faults``, which puts the engine on the injector's
+virtual clock); the run ends with the lifecycle's terminal-state totals
+and its robustness counters.
 
 Each layer's projections are packed as soon as they are drawn (unless
 ``--act-rht``, whose rotation the engine applies to dense weights), so a
@@ -39,7 +49,8 @@ from repro_torch import configs, resolve_device
 from repro_torch.core import qtensor
 from repro_torch.kernels import ops
 from repro_torch.models import build_model
-from repro_torch.serving.engine import Request, ServeEngine
+from repro_torch.serving.engine import QueueFullError, Request, ServeEngine
+from repro_torch.serving.faults import parse_faults
 
 
 def main(argv=None):
@@ -96,6 +107,31 @@ def main(argv=None):
                          "than the chunk budget (bitwise-identical to "
                          "whole-prompt prefill and one prefill shape; "
                          "replaces --prefill-buckets)")
+    ap.add_argument("--max-queue", type=int, default=64, metavar="N",
+                    help="bounded admission queue: submissions beyond N "
+                         "waiting requests are rejected with backpressure "
+                         "(typed reason 'queue_full') instead of growing "
+                         "an unbounded backlog")
+    ap.add_argument("--deadline-ms", type=float, default=None, metavar="MS",
+                    help="default per-request deadline: a request not "
+                         "FINISHED within MS of submission lands EXPIRED "
+                         "(typed reason 'deadline'), its slot and pool "
+                         "pages released")
+    ap.add_argument("--ttft-budget-ms", type=float, default=None,
+                    metavar="MS",
+                    help="default time-to-first-token budget: a request "
+                         "with no first token within MS lands EXPIRED "
+                         "(reason 'ttft_deadline')")
+    ap.add_argument("--inject-faults", default=None, metavar="SEED:SPEC",
+                    help="deterministic seeded fault injection at the "
+                         "engine's host/device boundaries, e.g. "
+                         "'7:decode=nan@3,pool_acquire=deny@p0.1' "
+                         "(serving.faults.parse_faults; sites prefill/"
+                         "decode/cow_copy/pool_acquire/checkpoint_read/"
+                         "journal_write/process_crash, "
+                         "kinds error/transient/nan/slow/dispatch/deny). "
+                         "The engine then runs on the injector's virtual "
+                         "clock")
     ap.add_argument("--save-weights", default=None, metavar="DIR",
                     help="write the packed weights as a checkpoint to DIR "
                          "(the reference's packed format; restore with "
@@ -107,6 +143,8 @@ def main(argv=None):
                  "per-row scales; use --act-quant mixfp4 or "
                  "mixfp4-2pass-rowscale")
 
+    injector = (parse_faults(args.inject_faults)
+                if args.inject_faults else None)
     device = resolve_device(args.device)
     cfg = (configs.smoke_config(args.arch) if args.smoke
            else configs.config(args.arch))
@@ -123,7 +161,15 @@ def main(argv=None):
                          prefill_buckets=args.prefill_buckets,
                          prefill_chunk=args.prefill_chunk or None,
                          kv_pool=args.kv_pool or None,
-                         kv_page_len=args.kv_page_len, device=device)
+                         kv_page_len=args.kv_page_len, device=device,
+                         max_queue=args.max_queue,
+                         deadline_ms=args.deadline_ms,
+                         ttft_budget_ms=args.ttft_budget_ms,
+                         faults=injector)
+    if injector is not None:
+        print(f"[serve] fault injection armed: seed {injector.seed}, "
+              f"{len(injector.rules)} rule(s); engine on the injector's "
+              "virtual clock")
     del params  # projections now live only as packed QTensors
     path = ("W4A16 kernel" if engine.act_quant == "bf16"
             else "W4A4 kernels")
@@ -159,8 +205,15 @@ def main(argv=None):
         max_new_tokens=args.new_tokens) for i in range(args.requests)]
     ops.reset_launch_counts()
     t0, n_tok = time.perf_counter(), 0
+    # requests ride the bounded admission queue: submit until
+    # backpressure, then step (step() itself pumps QUEUED requests into
+    # free slots, expires deadlines, and crosses the fault boundaries)
     while pending or engine.has_work():
-        while pending and engine.add_request(pending[0]):
+        while pending:
+            try:
+                engine.submit(pending[0])
+            except QueueFullError:
+                break
             pending.pop(0)
         n_tok += len(engine.step())
     if device.type == "cuda":
@@ -185,6 +238,20 @@ def main(argv=None):
               f"prefill passes, at most "
               f"{engine.scheduler.max_prefill_tokens_per_step()} prompt "
               f"tokens in one step")
+    rob = engine.robustness_report()
+    print(f"[serve] lifecycle: {rob['request_states']} "
+          f"(queue bound {rob['queue']['max_queue']}, deadline "
+          f"{args.deadline_ms or 'off'} ms, ttft budget "
+          f"{args.ttft_budget_ms or 'off'} ms)")
+    notable = {k: v for k, v in rob["counters"].items()
+               if k.split(":")[0] in ("failed", "expired", "cancelled",
+                                      "rejected") or k.startswith(
+                   ("retries", "degraded", "deferred", "injected"))}
+    if notable:
+        print(f"[serve] robustness counters: {notable}")
+    if injector is not None:
+        print(f"[serve] injector fired {len(injector.log)} event(s): "
+              f"{injector.summary()['by_kind']}")
 
 
 def _leaves(tree):

@@ -1,8 +1,7 @@
 """Chunked-prefill scheduler: long admissions never stall the decode batch.
 
-Counterpart of ``repro/serving/scheduler.py`` (the same jobs, cursors and
-per-step ledger for the same calls), without the journal snapshot and the
-degradation restart, which belong to the serving lifecycle.
+Counterpart of ``repro/serving/scheduler.py``: the same jobs, cursors and
+per-step ledger for the same calls.
 
 A whole-prompt admission runs the entire prompt through one prefill
 before the next ``step()`` can decode, so every in-flight request's
@@ -103,6 +102,19 @@ class ChunkedPrefillScheduler:
     def get(self, uid: int) -> PrefillJob | None:
         return self._jobs.get(uid)
 
+    def drop(self, uid: int) -> bool:
+        """Remove a job (cancel / expiry / fault quarantine).  The engine
+        owns the slot/page rollback; this only forgets the cursor."""
+        return self._jobs.pop(uid, None) is not None
+
+    def restart(self, uid: int, start_pos: int = 0) -> None:
+        """Reset a job's cursor (the paged -> fixed-slot degradation
+        migrates mid-prefill jobs by starting them over on the fresh
+        cache, where no prefix pages exist)."""
+        job = self._jobs[uid]
+        job.cursor = start_pos
+        job.chunks_done = 0
+
     def advance(self, job: PrefillJob, n_tokens: int) -> bool:
         """Record one executed chunk of ``n_tokens`` real prompt tokens.
         Returns True when the job just completed (the engine then flips
@@ -135,8 +147,15 @@ class ChunkedPrefillScheduler:
     def max_prefill_tokens_per_step(self) -> int:
         return max((s["prefill_tokens"] for s in self.step_log), default=0)
 
+    def jobs_report(self) -> list[dict]:
+        """Per-job cursor snapshot (FIFO order): which admissions are
+        mid-prefill, and how far each got."""
+        return [{"uid": j.uid, "slot": j.slot, "p_len": j.p_len,
+                 "cursor": j.cursor, "chunks_done": j.chunks_done}
+                for j in self._jobs.values()]
+
     def report(self) -> dict:
-        """Ledger summary."""
+        """Ledger summary for ``metrics_report()``."""
         return {
             "chunk_tokens": self.chunk,
             "pending_jobs": self.pending_jobs,

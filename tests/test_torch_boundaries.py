@@ -116,6 +116,30 @@ def test_launch_serve_runs_on_cpu_when_asked(capsys):
                     "--kv-pool", "9", "--kv-page-len", "8"])
     with pytest.raises(ValueError, match=">= 1"):
         serve.main(["--smoke", "--device", "cpu", "--prefill-chunk", "-1"])
+    # the lifecycle: a bounded queue (the third request waits for room),
+    # a default deadline and a seeded slow-decode schedule
+    serve.main(["--smoke", "--device", "cpu", "--kv-quant", "mixfp4",
+                "--requests", "3", "--batch", "2", "--new-tokens", "3",
+                "--max-len", "32", "--max-queue", "2", "--deadline-ms",
+                "1e6", "--inject-faults", "0:decode=slow:5"])
+    out = capsys.readouterr().out
+    assert "3 requests, 9 tokens" in out
+    assert "fault injection armed: seed 0, 1 rule(s)" in out
+    assert ("lifecycle: {'FINISHED': 3} (queue bound 2, deadline 1000000.0 "
+            "ms, ttft budget off ms)") in out
+    assert "'rejected:queue_full': 1" in out
+    assert "'injected_slow_ms': 20" in out
+    assert "injector fired 4 event(s): {'slow': 4}" in out
+    with pytest.raises(ValueError, match="bad fault spec"):
+        serve.main(["--smoke", "--device", "cpu", "--inject-faults",
+                    "decode=slow"])
+    with pytest.raises(ValueError, match="fault kind"):
+        serve.main(["--smoke", "--device", "cpu", "--inject-faults",
+                    "0:decode=bogus"])
+    with pytest.raises(ValueError, match="max_queue=0 must be >= 1"):
+        serve.main(["--smoke", "--device", "cpu", "--max-queue", "0"])
+    with pytest.raises(SystemExit):
+        serve.main(["--smoke", "--device", "cpu", "--deadline-ms", "soon"])
 
 
 def test_kernel_wrappers_reject_other_devices():

@@ -377,8 +377,15 @@ def test_unported_arguments_raise(saved):
     with pytest.raises(NotImplementedError, match="item 7"):
         manager.CheckpointManager(saved["dense"].ref).restore_packed(
             shardings={})
-    with pytest.raises(NotImplementedError, match="item 4"):
-        _port_engine("gemma2-2b", saved["dense"].tree, {"retry_max": 3})
+    # the checkpoint_read retry is ported (ROADMAP §1 item 4a): a read that
+    # fails with an OSError is retried retry_max times, then raised
+    from repro_torch.serving.faults import FaultInjector
+    eng = _port_engine("gemma2-2b", saved["dense"].tree,
+                       {"retry_max": 2, "faults": FaultInjector(0, [])})
+    with pytest.raises(OSError):
+        eng.load_weights(saved["dense"].ref, step=9)
+    assert eng.counters["retries:checkpoint_read"] == 2
+    assert eng.counters["retries_exhausted:checkpoint_read"] == 1
 
 
 def test_load_weights_checks_the_depth(saved):

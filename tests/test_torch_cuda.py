@@ -25,7 +25,10 @@ and last-split-only rows (experts without a non-zero row +0, every plan
 of its decode kernel bitwise the same); an MoE decode step bitwise equal to itself
 on the same state; attention and the KV write at Qwen1.5-MoE's heads
 (dh 128, g 1); attention at StarCoder2-15B's heads (dh 128, g 12, walked
-in passes of at most 8 heads).
+in passes of at most 8 heads).  The serving lifecycle on the card: the
+fused W4A4 rung with exact launch counts on both sides of it, poison
+isolation (survivors bitwise the card's own fault-free run) and the chaos
+sweep on a paged engine.
 """
 import functools
 
@@ -635,19 +638,25 @@ def test_gemm_experts_kernel_bitwise_per_expert_and_vs_plain(cuda, kn, c):
     assert torch.equal(qtensor.qmm_experts(x, qw), y)
 
 
-def _routed_rows(k: int, c: int, seed: int) -> torch.Tensor:
-    """``chip_smoke.routed_rows``: the (64, C, K) bf16 buffer
-    ``moe.dispatch_buffer`` builds for seeded random tokens routed top-4
-    over 60 experts with cap = C - 1, then experts 56-59 holding a row
-    non-zero only in K's last split (56), an Inf (57), a NaN (58) and -0.0
-    everywhere (59)."""
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (it lies beside the package, not in
+    it)."""
     import importlib.util
     from pathlib import Path
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.routed_rows(k, c, torch.device("cuda"), seed)
+    return mod
+
+
+def _routed_rows(k: int, c: int, seed: int) -> torch.Tensor:
+    """``chip_smoke.routed_rows``: the (64, C, K) bf16 buffer
+    ``moe.dispatch_buffer`` builds for seeded random tokens routed top-4
+    over 60 experts with cap = C - 1, then experts 56-59 holding a row
+    non-zero only in K's last split (56), an Inf (57), a NaN (58) and -0.0
+    everywhere (59)."""
+    return _chip_smoke().routed_rows(k, c, torch.device("cuda"), seed)
 
 
 def _live(x: torch.Tensor) -> torch.Tensor:
@@ -799,3 +808,83 @@ def test_moe_engine_on_the_card_launches_every_kernel(cuda, kw, arch):
                  "mixfp4_quant_kv": n_l * passes,
                  attn: n_l * eng.decode_steps})
     assert ops.launch_counts() == want
+
+
+# ---------------------------------------------------------------------------
+# the serving lifecycle on the card
+# ---------------------------------------------------------------------------
+def test_fused_rung_on_the_card_moves_the_launches(cuda):
+    """An injected dispatch fault at the second decode moves the fused
+    W4A4 + RHT path to ``mixfp4-2pass-rowscale``: each step's launches
+    are exact on both sides of the rung, and the streams equal the
+    fault-free run's."""
+    from repro_torch.serving import faults
+
+    cfg = configs.smoke_config("gemma2-2b")
+    params = build_model(cfg).init(0, device=cuda)
+    prompts = [np.arange(3 + 4 * i, dtype=np.int32) for i in range(3)]
+
+    def mk(inj=None):
+        return ServeEngine(cfg, params, batch_size=2, max_len=32,
+                           kv_quant="mixfp4", act_quant="mixfp4",
+                           act_rht=True, device=cuda, faults=inj)
+
+    oracle = faults.drive(mk(), prompts, max_new_tokens=5)
+    eng = mk(faults.FaultInjector(0, [faults.FaultRule(
+        "decode", "dispatch", at=(1,), times=1)]))
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=p, max_new_tokens=5))
+    streams, sides = _chip_smoke().step_w4a4_exact(eng)
+    assert eng.act_quant == "mixfp4-2pass-rowscale"
+    assert eng.counters["degraded_fused_to_2pass"] == 1
+    assert sides["mixfp4"] >= 1 and sides["mixfp4-2pass-rowscale"] >= 1
+    assert streams == oracle["streams"]
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen2-moe-a2.7b"])
+def test_poison_isolation_on_the_card(cuda, arch):
+    """A NaN-poisoned decode row fails its request only: the survivors'
+    streams are bitwise the card's own fault-free run, the victim's a
+    strict prefix."""
+    from repro_torch.serving import faults
+    from repro_torch.serving.engine import RequestState
+
+    cfg = configs.smoke_config(arch)
+    params = build_model(cfg).init(0, device=cuda, pack="mixfp4")
+    prompts = [np.arange(1, 5 + 2 * i, dtype=np.int32) for i in range(4)]
+
+    def mk(inj=None):
+        return ServeEngine(cfg, params, batch_size=4, max_len=32,
+                           kv_quant="mixfp4", device=cuda, faults=inj)
+
+    oracle = faults.drive(mk(), prompts, max_new_tokens=5)
+    inj = faults.FaultInjector(1, [faults.FaultRule("decode", "nan",
+                                                    at=(1,))])
+    got = faults.drive(mk(inj), prompts, max_new_tokens=5)
+    (victim,) = inj.fatal_victims()
+    assert (got["states"][victim], got["reasons"][victim]) == (
+        RequestState.FAILED, "nan_logits")
+    vs = got["streams"][victim]
+    assert vs == oracle["streams"][victim][:len(vs)] and len(vs) < 5
+    for uid, s in got["streams"].items():
+        if uid != victim:
+            assert s == oracle["streams"][uid]
+            assert got["states"][uid] is RequestState.FINISHED
+
+
+def test_chaos_sweep_on_a_paged_engine_on_the_card(cuda):
+    from repro_torch.serving import faults
+
+    cfg = configs.smoke_config("gemma2-2b")
+    params = build_model(cfg).init(0, device=cuda, pack="mixfp4")
+    prompts = [np.arange(2, 20 + 3 * i, dtype=np.int32) for i in range(4)]
+
+    def mk(faults=None):
+        return ServeEngine(cfg, params, batch_size=2, max_len=64,
+                           kv_quant="mixfp4", kv_pool=17, kv_page_len=16,
+                           device=cuda, faults=faults)
+
+    report = faults.chaos_sweep(mk, prompts, seeds=(0, 1, 2),
+                                max_new_tokens=4)
+    assert report["ok"]
+    assert all(s["events"] >= 1 for s in report["schedules"])

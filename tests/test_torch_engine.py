@@ -157,13 +157,71 @@ def test_kv_cache_bytes_and_packing_match_reference(jax_engine, packed):
         jax_engine.params)
 
 
-@pytest.mark.parametrize("kw", [{"ttft_budget_ms": 5.0}, {"faults": object()},
-                                {"hung_step_budget_ms": 5.0},
-                                {"deadline_ms": 5.0},
-                                {"journal_dir": "j"}, {"mesh": object()}])
+@pytest.mark.parametrize("kw", [{"journal_dir": "j"}, {"mesh": object()}])
 def test_unported_options_raise(packed, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port_engine(packed, **kw)
+
+
+# a lifecycle option the port took over -> (a good value given the port's
+# faults module, a check that the engine carries it)
+LIFECYCLE_OPTIONS = {
+    "ttft_budget_ms": (
+        lambda flt: 5.0,
+        lambda e: e.robustness_report()["deadlines"]["ttft_budget_ms"] == 5.0),
+    "faults": (
+        lambda flt: flt.FaultInjector(0, []),
+        lambda e: e.clock is e.faults.clock),
+    "hung_step_budget_ms": (
+        lambda flt: 5.0,
+        lambda e: e.robustness_report()["watchdog"]["budget_ms"] == 5.0),
+    "deadline_ms": (
+        lambda flt: 5.0,
+        lambda e: e.robustness_report()["deadlines"]["deadline_ms"] == 5.0),
+}
+
+
+@pytest.mark.parametrize("option", list(LIFECYCLE_OPTIONS))
+def test_lifecycle_options_build_and_are_carried(packed, option):
+    """Each lifecycle option the port took over builds an engine that
+    carries it.  The reference validates neither ``ttft_budget_ms`` nor
+    ``deadline_ms``; its checks of the other lifecycle arguments are held
+    by ``test_lifecycle_checks_raise_the_reference_messages``."""
+    from repro_torch.serving import faults
+
+    value, carries = LIFECYCLE_OPTIONS[option]
+    assert carries(_port_engine(packed, **{option: value(faults)}))
+
+
+# a check the reference makes of a lifecycle argument -> a bad construction
+# given (engine module, config, faults module, watchdog module) of either
+# package, which must raise as the reference does
+LIFECYCLE_CHECKS = {
+    "max_queue": lambda eng, cfg, flt, wd: eng.ServeEngine(
+        cfg, None, max_queue=0),
+    "degrade_after_deferrals": lambda eng, cfg, flt, wd: eng.ServeEngine(
+        cfg, None, degrade_after_deferrals=0),
+    "watchdog_budget": lambda eng, cfg, flt, wd: wd.StepWatchdog(0.0),
+    "fault_rule_kind": lambda eng, cfg, flt, wd: flt.FaultRule("decode",
+                                                               "deny"),
+}
+
+
+@pytest.mark.parametrize("check", list(LIFECYCLE_CHECKS))
+def test_lifecycle_checks_raise_the_reference_messages(check):
+    """A bad lifecycle argument raises the reference's error and message
+    (``hung_step_budget_ms`` reaches the engine's ``StepWatchdog``,
+    ``faults`` its ``FaultRule``s)."""
+    from repro.serving import faults as jfaults
+    from repro.serving import watchdog as jwatchdog
+    from repro_torch.serving import engine, faults, watchdog
+
+    bad = LIFECYCLE_CHECKS[check]
+    with pytest.raises(ValueError) as want:
+        bad(jengine, jconfigs.smoke_config("gemma2-2b"), jfaults, jwatchdog)
+    with pytest.raises(ValueError) as got:
+        bad(engine, configs.smoke_config("gemma2-2b"), faults, watchdog)
+    assert str(got.value) == str(want.value)
 
 
 def test_non_finite_prefill_logits_end_the_request(packed, monkeypatch):
