@@ -93,8 +93,9 @@ Phases (any failed check raises, so the script exits non-zero):
    4500-token request beside three mid-stream ones, with
    ``degrade_after_deferrals=1``: the paged -> fixed-slot rung fires once,
    the six streams equal phase 3's whole 32 tokens, no page stays active,
-   and the K/V bytes of the migrated requests that differ from (a)'s rows
-   are counted (the rung is not bitwise in them, ROADMAP §3); (d) W4A4 +
+   and not one K/V byte of the migrated requests differs from (a)'s rows
+   (the migration replays their generated tokens through the decode
+   kernel); (d) W4A4 +
    RHT (phase 3b's weights) with a ``dispatch`` fault at the second
    decode: the fused rung fires, the streams equal phase 3b's first 8
    tokens, and every step's launch counts are exact on both sides of it;
@@ -103,6 +104,20 @@ Phases (any failed check raises, so the script exits non-zero):
    the survivors equal phase 3m's first 8 tokens; (f) phase 5's restore
    with one transient ``checkpoint_read`` fault: retried once, the bytes
    and fingerprint unchanged.
+3R. crash recovery and the graceful drain at full width and depth, on
+   phase 3's gemma2-2b W4A16 weights, 8 new tokens (``[recovery]``): (a)
+   the six requests journaled (``journal_sync="always"``, under
+   ``build/journal``) in fixed slots and a ``process_crash`` after 1, 6
+   and 10 of the oracle's 14 steps (requests still queued; all four
+   admitted ones at 7 of 8 tokens; four finished); the engine abandoned
+   unflushed, a fresh one ``recover()``-s from the journal and drains:
+   streams equal phase 3's first 8 tokens, every request FINISHED, each
+   request's K/V bytes equal 3L(a)'s, and ``recover()`` launches exactly
+   what its prompt prefills and replay decode passes imply; (b) the same
+   on 3c's pool with 512-token chunks at 2 boundaries, no page left
+   active; (c) ``drain(max_steps=4)`` mid-stream, then the survivors
+   recovered with equal streams and rows; (d) the wall ms of each
+   ``recover()`` and of its replay, and the replay's decode passes.
 
 Each kernel's launch count comes from the path run that drives it, with
 the counts set to 0 just before that run.  The line before the last is a
@@ -2154,8 +2169,9 @@ def lifecycle_dense(dev, seed: int, params, streams: dict, smi: str):
     invariant against (a); (c) a pool too small for the mix with
     ``degrade_after_deferrals=1``: the paged -> fixed-slot rung fires
     while three requests are mid-stream, every stream equal to phase 3's
-    whole 32 tokens, and the K/V bytes of the migrated requests held
-    against (a)'s rows."""
+    whole 32 tokens, and the K/V bytes of the migrated requests bitwise
+    (a)'s rows.  Returns (a)'s rows of all six requests (uid -> packed
+    K/V bytes), phase 3R's oracle."""
     from repro_torch import configs
     from repro_torch.serving import faults
     from repro_torch.serving.engine import RequestState
@@ -2164,7 +2180,7 @@ def lifecycle_dense(dev, seed: int, params, streams: dict, smi: str):
     want = first_tokens(streams)
     # (a) the bounded queue on the system clock
     eng = life_engine(dev, params, max_queue=6)
-    rows_a = capture_rows(eng, {0, 1, 2})
+    rows_a = capture_rows(eng, set(range(len(streams))))
     reqs = shared_prefix_requests(cfg.vocab, seed, LIFE_NEW)
     for r in reqs:
         eng.submit(r)
@@ -2229,24 +2245,261 @@ def lifecycle_dense(dev, seed: int, params, streams: dict, smi: str):
     if eng.pool_report() is not None or "pages" in eng.cache:
         raise AssertionError("[lifecycle] (c) the engine still holds a "
                              "pool after the rung")
-    differ = total = layer0 = 0
+    differ = total = 0
     for uid in (0, 1, 2):
         for key, a in rows_a[uid].items():
             # (a)'s rows: the prompt and its first 7 generated tokens
-            c = rows_c[uid][key][:, :a.shape[1]]
-            ne = a != c
-            differ += int(ne.sum())
-            layer0 += int(ne[0].sum())
+            differ += int((a != rows_c[uid][key][:, :a.shape[1]]).sum())
             total += a.numel()
+    if differ:
+        raise AssertionError(f"[lifecycle] (c) {differ} of {total} K/V "
+                             "bytes of the migrated requests differ from "
+                             "(a)'s rows")
     log(f"[lifecycle] (c) pool of {LIFE_POOL} pages: {held['pages_active']} "
         f"pages active under three mid-stream requests, the 4500-token "
         f"admission deferred {reqs[3]._deferrals} time(s), "
         f"degraded_paged_to_fixed=1; after the drain no pool (0 pages "
         f"active) and all six streams equal phase 3's, all "
-        f"{len(streams[0])} tokens; K/V bytes of the three migrated "
-        f"requests (history re-prefilled at once) that differ from (a)'s "
-        f"rows (prompt and first {LIFE_NEW - 1} generated, written one "
-        f"decode at a time): {differ} of {total} ({layer0} in layer 0)")
+        f"{len(streams[0])} tokens; the migration replayed "
+        f"{eng.replay_decode_steps} decode passes; K/V bytes of the three "
+        f"migrated requests that differ from (a)'s rows (prompt and first "
+        f"{LIFE_NEW - 1} generated, written one decode at a time): "
+        f"{differ} of {total}")
+    return rows_a
+
+
+# ---------------------------------------------------------------------------
+# phase 3R: crash recovery and the graceful drain at full width
+# ---------------------------------------------------------------------------
+JOURNAL_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "journal")
+# crash boundaries (steps completed before the crash) of the fixed-slot
+# mix, whose 14 steps admit four requests at step 1 and two at step 8:
+# two requests queued behind four at 2 tokens; the four at 7 of 8 tokens
+# (the longest replay, six decode passes) with two queued; four finished
+# and two at 4 tokens
+CRASH_FIXED = (1, 6, 10)
+# the same mix on the pool with 512-token chunks
+CRASH_PAGED = (4, 12)
+
+
+def w4a16_pass(n_l: int, decode: bool, paged: bool) -> dict:
+    """Launches of one W4A16 model pass over the packed KV cache: 7 GEMMs
+    and one KV write per layer, and on a decode pass one attention."""
+    from repro_torch.kernels import ops
+
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want["mixfp4_gemm_w4a16"] = 7 * n_l
+    want["mixfp4_quant_kv"] = n_l
+    if decode:
+        want["mixfp4_attn_decode_paged" if paged
+             else "mixfp4_attn_decode"] = n_l
+    return want
+
+
+def fresh_journal(name: str) -> str:
+    import shutil
+    path = os.path.join(JOURNAL_ROOT, name)
+    shutil.rmtree(path, ignore_errors=True)
+    return path
+
+
+def free_engine(engine):
+    """Drop an engine's device memory before the next one is built (the
+    row-capture wrapper holds a reference cycle to it)."""
+    import gc
+    engine.cache = engine.params = None
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def timed_recover(engine) -> dict:
+    """``engine.recover()`` with its wall time, its replays' wall times
+    and decode passes, and its launches held to what its prefill and
+    replay passes imply (no plain version, no CPU)."""
+    from repro_torch.kernels import ops
+
+    replays = []
+    replay = engine._replay_histories
+
+    def timed(lanes, **kw):
+        torch.cuda.synchronize()
+        n, t = engine.replay_decode_steps, time.perf_counter()
+        replay(lanes, **kw)
+        torch.cuda.synchronize()
+        replays.append({"lanes": len(lanes),
+                        "ms": (time.perf_counter() - t) * 1e3,
+                        "decode_passes": engine.replay_decode_steps - n})
+
+    engine._replay_histories = timed
+    ops.reset_launch_counts()
+    n_pre = engine.prefill_dispatches
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    report = engine.recover()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    engine._replay_histories = replay
+    n_l, paged = engine.cfg.n_layers, engine.kv_pool is not None
+    n_pre = engine.prefill_dispatches - n_pre
+    n_dec = sum(r["decode_passes"] for r in replays)
+    pre, dec = w4a16_pass(n_l, False, paged), w4a16_pass(n_l, True, paged)
+    want = {k: n_pre * pre[k] + n_dec * dec[k] for k in pre}
+    if ops.launch_counts() != want:
+        raise AssertionError(f"[recovery] recover() launched "
+                             f"{ops.launch_counts()}, expected {want} "
+                             f"({n_pre} prefill, {n_dec} replay passes)")
+    return {"report": report, "ms": wall, "replays": replays,
+            "prefills": n_pre, "launches": sum(want.values())}
+
+
+def check_rows(tag: str, rows: dict, want: dict):
+    """Every captured request's K/V bytes equal the uninterrupted run's."""
+    for uid, got in rows.items():
+        bad = [k for k, a in want[uid].items() if not torch.equal(a, got[k])]
+        if bad:
+            raise AssertionError(f"[recovery] {tag} uid {uid}: K/V bytes "
+                                 f"{bad} differ from the uninterrupted run")
+
+
+def crash_and_recover(dev, seed: int, params, boundary: int, tag: str,
+                      want: dict, rows_want: dict, **kw) -> dict:
+    """Journal phase 3's six requests (8 new tokens, ``"always"``) and
+    crash at ``boundary``: the engine is abandoned unflushed, a fresh one
+    built on the same journal recovers and drains.  Gates: every stream
+    (tokens before the crash and after) equal to ``want``, every request
+    FINISHED, each request's K/V bytes equal to ``rows_want`` (the
+    resumed ones' rows rebuilt by the replay), and on a pool no page left
+    active."""
+    from repro_torch import configs
+    from repro_torch.serving import faults
+    from repro_torch.serving.engine import RequestState
+
+    jdir = fresh_journal(f"{tag}-{boundary}")
+    inj = faults.FaultInjector(boundary, [faults.FaultRule(
+        "process_crash", "error", at=(boundary,))])
+    eng = life_engine(dev, params, max_queue=6, faults=inj, journal_dir=jdir,
+                      journal_sync="always", **kw)
+    rows = capture_rows(eng, set(want))
+    reqs = shared_prefix_requests(configs.config("gemma2-2b").vocab, seed,
+                                  LIFE_NEW)
+    for r in reqs:
+        eng.submit(r)
+    streams = {}
+    try:
+        drain(eng, streams)
+        raise AssertionError(f"[recovery] {tag}: no crash at {boundary}")
+    except faults.InjectedFault as e:
+        if e.site != "process_crash":
+            raise
+    at_crash = collections.Counter(
+        "queued" if r.state is RequestState.QUEUED else
+        "finished" if r.state is RequestState.FINISHED else
+        "prefilling" if not r.generated else "mid-stream" for r in reqs)
+    free_engine(eng)
+    eng = life_engine(dev, params, max_queue=6, journal_dir=jdir,
+                      journal_sync="always", **kw)
+    rows_after = capture_rows(eng, set(want))
+    rec = timed_recover(eng)
+    drain(eng, streams)
+    rows.update(rows_after)
+    pool = eng.pool_report()
+    done = all(eng.requests[u].state is RequestState.FINISHED
+               for u in eng.recovered_uids)
+    free_engine(eng)
+    if streams != want or not done or sorted(rows) != sorted(want):
+        raise AssertionError(f"[recovery] {tag} crash at {boundary}: "
+                             f"streams {streams} vs {want}; all finished "
+                             f"{done}; rows of {sorted(rows)}")
+    if pool is not None and pool["pages_active"]:
+        raise AssertionError(f"[recovery] {tag}: {pool['pages_active']} "
+                             "pages still active")
+    check_rows(f"{tag} crash at {boundary}", rows, rows_want)
+    rec["at_crash"] = dict(at_crash)
+    return rec
+
+
+def recovery_phase(dev, seed: int, params, streams: dict, rows_a: dict,
+                   smi: str):
+    """Phase 3R on phase 3's (and 3c's) gemma2-2b W4A16 weights, 8 new
+    tokens: (a) crashes of the fixed-slot mix at ``CRASH_FIXED``, (b) of
+    the mix on 3c's pool with 512-token chunks at ``CRASH_PAGED``, each
+    recovered by a fresh engine (:func:`crash_and_recover`) against phase
+    3's first 8 tokens and 3L(a)'s K/V rows; (c) a drain cut by
+    ``max_steps`` mid-stream, its survivors recovered with equal streams
+    and rows; (d) the wall ms of each ``recover()`` and of its replay, and
+    the replay's decode passes."""
+    from repro_torch.serving.engine import RequestState
+
+    want = first_tokens(streams)
+    t0 = time.perf_counter()
+    runs = []
+    for k in CRASH_FIXED:
+        runs.append(("(a) fixed slots", k, crash_and_recover(
+            dev, seed, params, k, "fixed", want, rows_a)))
+    for k in CRASH_PAGED:
+        runs.append(("(b) pool + 512-token chunks", k, crash_and_recover(
+            dev, seed, params, k, "paged", want, rows_a, kv_pool=2049,
+            kv_page_len=PAGE_LEN, prefill_chunk=512)))
+    kinds = [set(r[2]["at_crash"]) for r in runs[:len(CRASH_FIXED)]]
+    if not ({"queued", "mid-stream"} <= kinds[0]
+            and "finished" in kinds[-1] and "mid-stream" in kinds[-1]):
+        raise AssertionError(f"[recovery] (a) crash states {kinds}")
+    for what, k, r in runs:
+        rp = r["report"]
+        log(f"[recovery] {what}: process_crash after {k} steps "
+            f"({r['at_crash']}); fresh engine recover(): {rp['resumed']} "
+            f"resumed, {rp['already_terminal']} already terminal, "
+            f"{r['prefills']} prompt prefills and {len(r['replays'])} "
+            f"replay(s) of {[x['decode_passes'] for x in r['replays']]} "
+            f"decode passes over {[x['lanes'] for x in r['replays']]} "
+            f"lanes; {r['launches']} launches, exactly those passes'; "
+            f"streams equal phase 3's first {LIFE_NEW} tokens, every "
+            f"request FINISHED, every request's K/V bytes equal 3L(a)'s")
+    # (c) the drain cut mid-stream, its survivors recovered
+    from repro_torch import configs
+    jdir = fresh_journal("drain")
+    eng = life_engine(dev, params, max_queue=6, journal_dir=jdir)
+    rows = capture_rows(eng, set(want))
+    reqs = shared_prefix_requests(configs.config("gemma2-2b").vocab, seed,
+                                  LIFE_NEW)
+    for r in reqs:
+        eng.submit(r)
+    drained = eng.drain(max_steps=4)
+    got = {r.uid: list(r.generated) for r in reqs}
+    fsyncs = eng.journal.fsyncs
+    free_engine(eng)
+    if drained["drained"] or len(drained["survivors"]) != len(reqs):
+        raise AssertionError(f"[recovery] (c) drain report {drained}")
+    eng = life_engine(dev, params, max_queue=6, journal_dir=jdir)
+    rows_after = capture_rows(eng, set(want))
+    rec = timed_recover(eng)
+    drain(eng, got)
+    rows.update(rows_after)
+    done = all(r.state is RequestState.FINISHED
+               for r in eng.requests.values())
+    free_engine(eng)
+    if got != want or not done:
+        raise AssertionError(f"[recovery] (c) streams {got} vs {want}")
+    if sorted(rows) != sorted(want):
+        raise AssertionError(f"[recovery] (c) rows of {sorted(rows)}")
+    check_rows("(c)", rows, rows_a)
+    runs.append(("(c) drain", 4, rec))
+    log(f"[recovery] (c) drain(max_steps=4): {drained['completed']} "
+        f"completed, survivors {drained['survivors']} journaled with the "
+        f"ledger ({fsyncs} fsync(s) under 'batch'); a fresh engine "
+        f"resumed {rec['report']['resumed']}, replay passes "
+        f"{[x['decode_passes'] for x in rec['replays']]}; streams equal "
+        f"phase 3's first {LIFE_NEW} tokens, K/V bytes equal 3L(a)'s")
+    # (d) what recovery costs
+    for what, k, r in runs:
+        log(f"[recovery] (d) {what} at {k}: recover() {r['ms']:.2f} ms "
+            f"wall, of it replay "
+            f"{sum(x['ms'] for x in r['replays']):.2f} ms over "
+            f"{sum(x['decode_passes'] for x in r['replays'])} decode "
+            f"passes, {r['prefills']} prompt prefills; card {smi}")
+    log(f"[recovery] phase 3R {time.perf_counter() - t0:.2f} s")
 
 
 def w4a4_pass(n_l: int, mode: str, decode: bool) -> dict:
@@ -2542,8 +2795,9 @@ def main():
                              "whole-prompt ones")
     log("[serve-paged] all six streams equal phase 3's token for token")
     checkpoint_round_trip(dev, args.seed, gemma, fixed["streams"])
-    lifecycle_dense(dev, args.seed, gemma, fixed["streams"], smi)
-    del gemma
+    rows_a = lifecycle_dense(dev, args.seed, gemma, fixed["streams"], smi)
+    recovery_phase(dev, args.seed, gemma, fixed["streams"], rows_a, smi)
+    del gemma, rows_a
     torch.cuda.empty_cache()
     w4a4 = serve_path(dev, args.seed, "[serve-w4a4]", act_quant="mixfp4",
                       act_rht=True)

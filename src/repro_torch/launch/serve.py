@@ -20,6 +20,12 @@ Usage (on the GPU; ``--device cpu`` runs the kernels' plain versions):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
       --smoke --device cpu --max-queue 2 --deadline-ms 1e6 \
       --inject-faults "0:decode=slow:5"
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
+      --smoke --device cpu --kv-quant mixfp4 --journal-dir build/journal \
+      --inject-faults "0:process_crash=error@3"
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
+      --smoke --device cpu --kv-quant mixfp4 --journal-dir build/journal \
+      --recover
 
 ``--save-weights DIR`` writes the packed weights as a checkpoint in the
 reference's format and exits without serving; ``ServeEngine.load_weights``
@@ -30,7 +36,10 @@ Requests ride the engine's bounded admission queue (``--max-queue``;
 deadlines (``--deadline-ms``, ``--ttft-budget-ms``) and a seeded fault
 schedule (``--inject-faults``, which puts the engine on the injector's
 virtual clock); the run ends with the lifecycle's terminal-state totals
-and its robustness counters.
+and its robustness counters.  ``--journal-dir DIR`` journals the requests
+(``--journal-sync`` sets the fsync policy); a later run with ``--recover``
+first resumes every request the journal left in flight, then serves its
+own.
 
 Each layer's projections are packed as soon as they are drawn (unless
 ``--act-rht``, whose rotation the engine applies to dense weights), so a
@@ -50,7 +59,7 @@ from repro_torch.core import qtensor
 from repro_torch.kernels import ops
 from repro_torch.models import build_model
 from repro_torch.serving.engine import QueueFullError, Request, ServeEngine
-from repro_torch.serving.faults import parse_faults
+from repro_torch.serving.faults import InjectedFault, parse_faults
 
 
 def main(argv=None):
@@ -132,11 +141,33 @@ def main(argv=None):
                          "kinds error/transient/nan/slow/dispatch/deny). "
                          "The engine then runs on the injector's virtual "
                          "clock")
+    ap.add_argument("--journal-dir", default=None, metavar="DIR",
+                    help="crash-safe serving: append-only CRC-per-record "
+                         "request journal (admissions, per-step tokens, "
+                         "terminal transitions) written through the "
+                         "request state machine (serving.journal); a "
+                         "restarted process passes --recover to rebuild "
+                         "every in-flight stream bitwise")
+    ap.add_argument("--journal-sync", default="batch",
+                    choices=["always", "batch", "off"],
+                    help="journal fsync policy: 'always' per record, "
+                         "'batch' once per engine step (default), 'off' "
+                         "OS-buffered.  Greedy decode re-derives tokens "
+                         "lost to an unsynced tail, so 'batch' still "
+                         "resumes bitwise")
+    ap.add_argument("--recover", action="store_true",
+                    help="replay --journal-dir on startup: every "
+                         "non-terminal journaled request replays its "
+                         "prompt and token history into fresh slots or "
+                         "pages and continues decode bitwise identical to "
+                         "the uninterrupted run")
     ap.add_argument("--save-weights", default=None, metavar="DIR",
                     help="write the packed weights as a checkpoint to DIR "
                          "(the reference's packed format; restore with "
                          "ServeEngine.load_weights(DIR)) and exit")
     args = ap.parse_args(argv)
+    if args.recover and not args.journal_dir:
+        ap.error("--recover replays a request journal; give --journal-dir")
     if args.act_rht and args.act_quant not in ("mixfp4",
                                                "mixfp4-2pass-rowscale"):
         ap.error("--act-rht rotates both W4A4 operands and needs the "
@@ -165,7 +196,15 @@ def main(argv=None):
                          max_queue=args.max_queue,
                          deadline_ms=args.deadline_ms,
                          ttft_budget_ms=args.ttft_budget_ms,
+                         journal_dir=args.journal_dir,
+                         journal_sync=args.journal_sync,
                          faults=injector)
+    if args.journal_dir:
+        stats = engine.journal.stats
+        print(f"[serve] request journal at {args.journal_dir} "
+              f"(sync={args.journal_sync}): {stats['records']} record(s) "
+              f"on disk, {stats.get('truncated_bytes', 0)} torn/corrupt "
+              f"byte(s) truncated")
     if injector is not None:
         print(f"[serve] fault injection armed: seed {injector.seed}, "
               f"{len(injector.rules)} rule(s); engine on the injector's "
@@ -194,12 +233,22 @@ def main(argv=None):
               f"{args.save_weights}")
         return
 
+    if args.recover:
+        rep = engine.recover()
+        print(f"[serve] journal recovery: {rep['replayed_records']} "
+              f"record(s) -> {rep['requests']} request(s) "
+              f"({rep['already_terminal']} already terminal, "
+              f"{rep['resumed']} resumed, {rep['finalized']} finalized "
+              f"from history); resumed streams continue bitwise")
+
     rng = np.random.RandomState(args.seed)
     # pooled runs share a page-sized "system prompt" across requests so the
     # pool report below shows prefix hits
     shared = (rng.randint(0, cfg.vocab, args.kv_page_len).astype(np.int32)
               if args.kv_pool else np.zeros((0,), np.int32))
-    pending = [Request(uid=i, prompt=np.concatenate(
+    # new uids start past any request recovered from the journal
+    first = max(engine.requests, default=-1) + 1
+    pending = [Request(uid=first + i, prompt=np.concatenate(
         [shared, rng.randint(0, cfg.vocab, args.prompt_len).astype(
             np.int32)]),
         max_new_tokens=args.new_tokens) for i in range(args.requests)]
@@ -215,7 +264,18 @@ def main(argv=None):
             except QueueFullError:
                 break
             pending.pop(0)
-        n_tok += len(engine.step())
+        try:
+            n_tok += len(engine.step())
+        except InjectedFault as e:
+            if e.site != "process_crash":
+                raise
+            # the process "dies" here: the engine is abandoned with what
+            # the journal committed, as a kill would leave it
+            print(f"[serve] injected process crash after {n_tok} tokens: "
+                  "engine abandoned unflushed"
+                  + (" (rerun with --recover to resume the journal)"
+                     if args.journal_dir else ""))
+            return
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0

@@ -47,9 +47,10 @@ fault (or a watchdog ``degrade`` verdict) moves the fused W4A4 GEMM to
 the quantizer plus the packed W4A4 GEMM (``"mixfp4-2pass-rowscale"``,
 bitwise the fused spelling), and ``degrade_after_deferrals`` admissions
 deferred by an exhausted pool move the paged pool to fixed slots, each
-live request re-prefilling its history (the streams stay the same, but
-unlike the reference's replay the re-prefilled K/V rows are not bitwise
-the ones decode wrote: see :func:`engine_robustness_spec`).  ``hung_step_budget_ms`` arms the
+live request replaying its history (``_replay_histories``: the prompt
+through the prefill its admission used, the generated tokens through
+``decode_step`` in lockstep, so every K/V row is bitwise the one decode
+first wrote, for the dense family).  ``hung_step_budget_ms`` arms the
 step watchdog (``serving.watchdog``); ``metrics_report`` gives the
 counters, gauges and TTFT/ITL histograms (``serving.metrics``).  Only an
 injected fault or a watchdog verdict fires a rung: a real kernel error
@@ -62,9 +63,20 @@ layers stacked as the reference stacks them), and ``load_weights``
 restores one, written by either package, onto the engine's device, with
 OSError retries behind the ``checkpoint_read`` boundary.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the request journal and crash recovery (``journal_dir``), and
-mesh serving.
+``journal_dir`` makes serving crash-safe (``serving.journal``): the
+engine writes admissions, emitted tokens, terminal transitions and the
+checkpoint pin through its state machine into a CRC-framed append-only
+journal (the reference's format byte for byte; ``journal_sync`` sets the
+fsync policy), behind the ``journal_write`` fault boundary, fail-open.  A
+fresh engine's ``recover()`` rebuilds every non-terminal journaled request
+and resumes it through the same history replay as the paged rung, so a
+resumed stream and its K/V rows are bitwise the uninterrupted run's.
+``begin_drain`` / ``drain`` / ``finish_drain`` close admissions, let the
+batch finish (or hit a deadline) and journal a durable ledger snapshot;
+the survivors are the next process's to recover.
+
+Not ported yet: mesh serving (``mesh=`` raises ``NotImplementedError``
+naming its ROADMAP item).
 """
 from __future__ import annotations
 
@@ -72,6 +84,7 @@ import collections
 import contextlib
 import dataclasses
 import enum
+import os
 
 import numpy as np
 import torch
@@ -83,13 +96,14 @@ from repro_torch.models import build_model
 from repro_torch.models.base import (ACT_QUANT_MODES, ActQuant, ArchConfig,
                                      pack_projections)
 from repro_torch.serving.faults import InjectedFault, SystemClock
+from repro_torch.serving.journal import JournalError, RequestJournal, replay
 from repro_torch.serving.kvpool import KVPool
 from repro_torch.serving.metrics import MetricsRegistry
 from repro_torch.serving.scheduler import ChunkedPrefillScheduler
 from repro_torch.serving.watchdog import StepWatchdog
 
 __all__ = ["Request", "RequestState", "ServeEngine", "QueueFullError",
-           "RequestValidationError", "EngineDrainingError",
+           "RequestValidationError", "EngineDrainingError", "JournalError",
            "engine_robustness_spec"]
 
 
@@ -137,7 +151,6 @@ REASON_WATCHDOG = "watchdog_timeout"       # FAILED: hung-step budget blown
 
 # engine argument -> the ROADMAP item that ports it
 _NOT_PORTED = {
-    "journal_dir": "§1 item 4b (request journal and crash recovery)",
     "mesh": "§1 item 7 (multi-GPU)",
 }
 
@@ -162,8 +175,7 @@ class QueueFullError(RuntimeError):
 class EngineDrainingError(RuntimeError):
     """The engine is draining: admissions are closed while in-flight
     requests finish.  Clients should retry against a replacement
-    instance; the engine state is untouched.  (The drain itself is ROADMAP
-    §1 item 4b; until then ``draining`` stays False.)"""
+    instance; the engine state is untouched."""
 
     reason = REJECT_DRAINING
 
@@ -205,21 +217,15 @@ def engine_robustness_spec(*, max_queue: int = 64,
     """Pure description of an engine's robustness configuration — the
     queue bound, deadline defaults, and which rungs of the degradation
     ladder are armed; mirrored live by ``ServeEngine.robustness_report``.
-
-    Unlike the reference's, the paged rung is not ``bitwise_preserving``:
-    on the card a re-prefilled history's K/V rows past the first layer
-    come from the prefill attention, not the decode kernel that wrote
-    them, and differ in low bits.  The greedy streams stay the same
-    unless those bits flip a near-tied argmax (``chip_smoke.py`` phase 3L
-    (c) holds 32 tokens of six requests at full width), which is what
-    ``preserves`` says."""
+    Both rungs keep the streams and the K/V bytes: the paged rung replays
+    each history through the prefill and decode passes that first wrote
+    it (``ServeEngine._replay_histories``)."""
     ladder = []
     if act_quant == "mixfp4":
         ladder.append({"from": "fused W4A4 GEMM",
                        "to": "2-pass W4A4 (per-row scales)",
                        "trigger": "failed fused dispatch",
-                       "bitwise_preserving": True,
-                       "preserves": "token streams and K/V bytes"})
+                       "bitwise_preserving": True})
     if kv_pool is not None:
         ladder.append({"from": "paged attention", "to": "fixed-slot",
                        "trigger": (f"admission deferred "
@@ -227,9 +233,7 @@ def engine_robustness_spec(*, max_queue: int = 64,
                                    if degrade_after_deferrals
                                    else "disarmed (degrade_after_deferrals"
                                         "=None)"),
-                       "bitwise_preserving": False,
-                       "preserves": "token streams, barring a flipped "
-                                    "near-tied argmax"})
+                       "bitwise_preserving": True})
     return {
         "queue": {"max_queue": max_queue},
         "deadlines": {"deadline_ms": deadline_ms,
@@ -341,14 +345,12 @@ class ServeEngine:
                  retry_cap_ms: float = 1000.0,
                  hung_step_budget_ms: float | None = None,
                  watchdog_fail_after: int = 2,
-                 journal_dir: str | None = None, mesh=None):
-        given = {"journal_dir": journal_dir is not None,
-                 "mesh": mesh is not None}
-        for arg, on in given.items():
-            if on:
-                raise NotImplementedError(
-                    f"ServeEngine({arg}=...) is not ported yet "
-                    f"(ROADMAP {_NOT_PORTED[arg]})")
+                 journal_dir: str | None = None, journal_sync: str = "batch",
+                 mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "ServeEngine(mesh=...) is not ported yet "
+                f"(ROADMAP {_NOT_PORTED['mesh']})")
         if max_queue < 1:
             raise ValueError(f"max_queue={max_queue} must be >= 1")
         if degrade_after_deferrals is not None and degrade_after_deferrals < 1:
@@ -468,6 +470,18 @@ class ServeEngine:
         # observability: the engine is the only writer; readers take
         # snapshot dicts via metrics_report()
         self.metrics = MetricsRegistry()
+        # durability: the append-only request journal, written through the
+        # state machine (submit / step / _mark_terminal), so replaying it
+        # rebuilds the lifecycle the counters saw
+        self.journal_sync = journal_sync
+        self.journal = (RequestJournal(journal_dir, sync=journal_sync)
+                        if journal_dir is not None else None)
+        self.recovered_uids: list[int] = []
+        self._weights_pin: dict | None = None   # journal <-> ckpt pinning
+        # (slot, request) of the requests resumed by the running _pump,
+        # whose generated tokens replay when it ends; replay decode passes
+        self._resumed: list[tuple[int, Request]] = []
+        self.replay_decode_steps = 0
 
     # ------------------------------------------------------------------
     def kv_cache_bytes(self) -> int:
@@ -486,8 +500,24 @@ class ServeEngine:
         """Write the packed parameters as checkpoint ``step`` of
         ``directory``: stacked into the reference's layout on the host,
         then ``save_packed`` (blocking)."""
-        CheckpointManager(directory).save_packed(
-            step, convert.packed_to_stacked(self.params), blocking=True)
+        mgr = CheckpointManager(directory)
+        mgr.save_packed(step, convert.packed_to_stacked(self.params),
+                        blocking=True)
+        self._pin_weights(directory, step, mgr)
+
+    def _pin_weights(self, directory: str, step: int, mgr):
+        """Record the packed-checkpoint pin (step + manifest fingerprint)
+        on the engine and in the journal, so ``recover()`` can refuse to
+        resume journaled streams against other weight bytes."""
+        try:
+            fp = mgr.packed_fingerprint(step)
+        except (OSError, ValueError, KeyError):
+            fp = None
+        self._weights_pin = {"dir": str(directory), "step": int(step),
+                             "fingerprint": fp}
+        self._journal_append({"t": "ckpt", "dir": str(directory),
+                              "step": int(step), "fp": fp})
+        self._journal_flush()
 
     def load_weights(self, directory: str, step: int | None = None):
         """Restore a packed checkpoint (the latest step by default), written
@@ -515,6 +545,10 @@ class ServeEngine:
         self.packed_bytes, self.dense_bytes = _packed_stats(params)
         self.compression = (self.dense_bytes / self.packed_bytes
                             if self.packed_bytes else 1.0)
+        if step is None:
+            step = mgr.latest_step()
+        if step is not None:
+            self._pin_weights(directory, step, mgr)
 
     @staticmethod
     def bucket_len(p_len: int, max_len: int) -> int:
@@ -588,6 +622,7 @@ class ServeEngine:
         self.requests[req.uid] = req
         self.queue.append(req)
         self.counters["submitted"] += 1
+        self._journal_submit(req)
 
     def cancel(self, uid: int, reason: str = REASON_CANCELLED) -> bool:
         """Cancel a queued or in-flight request.  Returns True if the
@@ -609,6 +644,51 @@ class ServeEngine:
     def has_work(self) -> bool:
         return bool(self.queue) or any(
             s is not None and not s.done for s in self.slots)
+
+    # -- journal write-through -----------------------------------------
+    def _journal_append(self, rec: dict):
+        """Append one record behind the ``journal_write`` fault boundary.
+        Transients (and real OSErrors) retry with capped backoff; a fatal
+        failure disables journaling and keeps serving (fail-open: losing
+        durability is a counter, not an outage) — recovery then resumes
+        from the last committed record, whose lost tail greedy decode
+        re-derives bitwise."""
+        if self.journal is None:
+            return
+        try:
+            self._with_retries("journal_write",
+                               lambda: self.journal.append(rec),
+                               retryable=(OSError,))
+        except (InjectedFault, OSError):
+            self._disable_journal()
+
+    def _disable_journal(self):
+        self.counters["journal_write_failed"] += 1
+        self.counters["journal_disabled"] = 1
+        with contextlib.suppress(Exception):
+            self.journal.close()
+        self.journal = None
+
+    def _journal_submit(self, req: Request):
+        if self.journal is None:
+            return
+        rec = {"t": "submit", "uid": req.uid,
+               "prompt": [int(t) for t in np.asarray(req.prompt).ravel()],
+               "max_new_tokens": int(req.max_new_tokens)}
+        if req.deadline_ms is not None:
+            rec["deadline_ms"] = req.deadline_ms
+        if req.ttft_budget_ms is not None:
+            rec["ttft_budget_ms"] = req.ttft_budget_ms
+        self._journal_append(rec)
+
+    def _journal_flush(self):
+        """Step-boundary flush: under ``journal_sync='batch'`` this is the
+        one fsync point that commits the step's token records."""
+        if self.journal is not None:
+            try:
+                self.journal.flush()
+            except OSError:
+                self._disable_journal()
 
     # -- fault hooks / clock -------------------------------------------
     def _fire(self, site: str, *, uid: int | None = None, scoped=True):
@@ -671,8 +751,11 @@ class ServeEngine:
         self._validate(req)
         if req.submitted_at is None:
             req.submitted_at = self.clock()
+        if req.uid not in self.requests:
+            self._journal_submit(req)    # once per uid across re-tries
         self.requests[req.uid] = req
         res = self._try_admit(req)
+        self._replay_resumed()
         if res == "deferred":
             req._deferrals += 1
             self.counters["deferred_admissions"] += 1
@@ -682,7 +765,20 @@ class ServeEngine:
         """Try to place ``req`` in a free slot: 'admitted', 'no_slot',
         'deferred' (pool exhausted — retryable), or 'failed' (an admission
         fault consumed the request; its slot and pages were rolled back
-        and it is terminally FAILED)."""
+        and it is terminally FAILED).
+
+        A request that already holds generated tokens (recovered after a
+        restart) resumes mid-stream: its prompt prefills now, whole even on
+        a chunked engine, behind the same fault boundary and rollback, and
+        its ``generated[:-1]`` replays through ``decode_step`` when the
+        admitting call ends, in lockstep with every request resumed with it
+        (:meth:`_replay_histories`), so each K/V row is bitwise the one the
+        pre-crash engine wrote; decode then feeds ``generated[-1]`` at
+        ``len(prompt) + len(generated) - 1``, where that engine stopped.  Its
+        pages (the footprint of the prompt with ``max_new_tokens``, which is
+        the reference's ``shim_new`` footprint of the history, matched over
+        the prompt alone) stay anonymous: never registered for prefix hits,
+        since decode still writes the trailing page."""
         i = next((i for i, s in enumerate(self.slots) if s is None), None)
         if i is None:
             return "no_slot"
@@ -728,35 +824,51 @@ class ServeEngine:
                                      REASON_COW_ERROR, error=cow_act.error)
                 return "failed"
             self._cow_copy(*cow)
-        if self.scheduler is not None:
+        if self.scheduler is not None and not req.generated:
             # chunked admission: the slot is held, step() drains the job
             # one chunk at a time; a paged prompt's pages are registered
             # for prefix hits only when the job completes
             self.scheduler.enqueue(req.uid, i, req, len(req.prompt),
                                    start_pos=start)
             return "admitted"
-        return "admitted" if self._guarded_prefill(i, req, start) \
-            else "failed"
+        logits = self._guarded_prefill(i, req, start)
+        if logits is None:
+            return "failed"
+        if not req.generated:
+            return "admitted" if self._prefill_done(i, req, logits) \
+                else "failed"
+        self.lengths[i] = len(req.prompt)
+        self.admissions += 1
+        req.state = RequestState.RUNNING
+        self._resumed.append((i, req))
+        self.counters["resumed"] += 1
+        return "admitted"
+
+    def _replay_resumed(self):
+        """Replay the generated tokens of the requests resumed since the
+        last call, in one lockstep loop."""
+        if self._resumed:
+            lanes, self._resumed = self._resumed, []
+            self._replay_histories(lanes, prompts=False)
 
     def _guarded_prefill(self, i: int, req: Request, start_pos: int = 0):
-        """Admission prefill behind the 'prefill' fault boundary.  On an
-        injected fault the slot is rolled back (pages released, block
-        table row pointed at the trash page) and the request lands FAILED
-        with a typed reason; a REAL prefill exception propagates after the
-        same rollback, so the engine never holds a half-admitted slot.
-        False when the request ended here."""
+        """Admission prefill behind the 'prefill' fault boundary; returns
+        its logits.  On an injected fault the slot is rolled back (pages
+        released, block table row pointed at the trash page) and the
+        request lands FAILED with a typed reason (None then); a REAL
+        prefill exception propagates after the same rollback, so the
+        engine never holds a half-admitted slot."""
         try:
             self._with_retries("prefill", None, uid=req.uid)
-            logits = self._prefill_slot(i, req, start_pos)
+            return self._prefill_slot(i, req, start_pos)
         except InjectedFault as e:
             reason = REASON_RETRIES if e.transient else REASON_INJECTED
             self._finish_request(i, RequestState.FAILED, reason, error=e)
-            return False
+            return None
         except Exception as e:
             self._finish_request(i, RequestState.FAILED,
                                  REASON_PREFILL_ERROR, error=e)
             raise
-        return self._prefill_done(i, req, logits)
 
     def _cow_copy(self, src: int, dst: int):
         """The eager copy-on-write of a partial prefix hit: page ``src``'s
@@ -845,7 +957,12 @@ class ServeEngine:
         nothing behind it is admitted (FIFO fairness).  An IDLE engine
         sleeps the clock up to the head's retry gate instead of spinning —
         with a virtual clock this is what makes deferred admissions
-        livelock-free."""
+        livelock-free.  The requests it resumed replay their generated
+        tokens together at the end."""
+        self._admit_queued()
+        self._replay_resumed()
+
+    def _admit_queued(self):
         while self.queue:
             head = self.queue[0]
             if head.state is not RequestState.QUEUED:
@@ -932,13 +1049,13 @@ class ServeEngine:
     def _degrade_to_fixed_slot(self):
         """Pool exhaustion past the deferral budget: abandon the paged
         pool for the fixed-slot packed KV cache.  Every in-flight request
-        is migrated by re-prefilling its full token history
-        (prompt ++ generated[:-1]) into the fresh cache — greedy decode
-        makes that replay value-preserving, and the invariant
-        lengths = p_len + len(generated) - 1 is exactly the history
-        length.  A mid-prefill chunk job restarts from position 0 (its
-        cached-prefix rows lived in the abandoned pages)."""
+        is migrated by replaying its token history into the fresh cache
+        (:meth:`_replay_histories`), bitwise for the dense family; a
+        request resumed by this pump replays whole with them.  A
+        mid-prefill chunk job restarts from position 0 (its cached-prefix
+        rows lived in the abandoned pages)."""
         live = [(i, r) for i, r in enumerate(self.slots) if r is not None]
+        self._resumed = []
         self.kv_pool = None
         self.kv_pool_pages = None
         self._slot_pages = [None] * self.batch_size
@@ -947,22 +1064,56 @@ class ServeEngine:
                                            device=self.device,
                                            kv_quant="mixfp4")
         self.counters["degraded_paged_to_fixed"] += 1
+        lanes = []
         for i, req in live:
             if (self.scheduler is not None
                     and req.state is RequestState.PREFILLING):
                 self.lengths[i] = 0
                 self.scheduler.restart(req.uid, 0)
-                continue
-            history = np.asarray(req.prompt, np.int32)
-            if req.generated:
-                history = np.concatenate(
-                    [history, np.asarray(req.generated[:-1], np.int32)])
-            logits = self._prefill_slot(i, Request(
-                uid=req.uid, prompt=history,
-                max_new_tokens=req.max_new_tokens))
-            self.lengths[i] = len(history)
-            if not req.generated:      # first token not emitted yet
-                req._next = int(torch.argmax(logits[0]))
+            else:
+                lanes.append((i, req))
+        self._replay_histories(lanes)
+
+    def _replay_histories(self, lanes, *, prompts: bool = True):
+        """Rebuild the K/V rows of ``lanes`` ((slot, request) pairs) from
+        their token histories ``prompt ++ generated[:-1]``.
+
+        Each prompt prefills as its admission did (whole and bucketed,
+        into the lane's fresh slot or pages; chunked prefill is bitwise
+        whole prefill), unless ``prompts=False`` says its rows are in the
+        cache already.  Then the generated tokens run through
+        ``decode_step`` in lockstep across the lanes, each lane at its next
+        position until its tail is used up.  A decode row is bitwise
+        independent of its batchmates and of the cache's capacity, so each
+        comes out as the decode step first wrote it.  Every other lane —
+        free, mid-prefill, running, or replayed to its end — feeds token 0
+        at its own ``lengths[i]``, the row its next pass writes again
+        before reading it, as an idle lane does in ``step()``.  The replay
+        emits no token, observes no ITL, crosses no fault boundary and
+        drops its logits.  Afterwards ``lengths[i] == len(prompt) +
+        len(generated) - 1``, where the next step feeds ``generated[-1]``;
+        a request with no token yet takes its first from the prefill
+        logits.  A replay costs one decode pass per token of the longest
+        tail (``replay_decode_steps``)."""
+        tails = {}
+        for i, req in lanes:
+            if prompts:
+                logits = self._prefill_slot(i, req)
+                if not req.generated:   # first token not emitted yet
+                    req._next = int(torch.argmax(logits[0]))
+            self.lengths[i] = len(req.prompt)
+            tails[i] = req.generated[:-1]
+        for t in range(max(map(len, tails.values()), default=0)):
+            toks = np.zeros((self.batch_size,), np.int64)
+            rows = [i for i, tail in tails.items() if t < len(tail)]
+            for i in rows:
+                toks[i] = tails[i][t]
+            _, self.cache = self.model.decode_step(
+                self.params, torch.as_tensor(toks, device=self.device),
+                self.cache, torch.as_tensor(self.lengths, device=self.device),
+                act=self.act)
+            self.lengths[rows] += 1
+            self.replay_decode_steps += 1
 
     def robustness_report(self) -> dict:
         """Live robustness state: queue depth/bounds, deadline config,
@@ -982,9 +1133,163 @@ class ServeEngine:
         spec["act_quant"] = self.act_quant
         spec["paged"] = self.kv_pool is not None
         spec["draining"] = self.draining
+        spec["journaled"] = self.journal is not None
         if self.watchdog is not None:
             spec["watchdog"] = self.watchdog.report()
         return spec
+
+    # -- graceful drain / crash recovery -------------------------------
+    def begin_drain(self):
+        """Close admissions: ``submit()`` now rejects with the typed
+        ``draining`` reason while in-flight (and already-queued) requests
+        keep stepping to completion.  Idempotent."""
+        if not self.draining:
+            self.draining = True
+            self.counters["drain_begun"] = 1
+
+    def finish_drain(self) -> dict:
+        """Snapshot the ledger after the drain loop stops: one ``ledger``
+        journal record (counters, per-request final states, any
+        mid-prefill cursors) committed with a forced fsync, whatever the
+        steady-state ``journal_sync``.  Requests still live at the drain
+        deadline stay non-terminal in the journal: the next process
+        recovers them."""
+        survivors = [uid for uid, r in self.requests.items()
+                     if not r.state.terminal]
+        if self.journal is not None:
+            rec = {"t": "ledger",
+                   "counters": {k: float(v)
+                                for k, v in self.counters.items()},
+                   "requests": {str(uid): {"state": str(r.state),
+                                           "reason": r.finish_reason,
+                                           "n_tokens": len(r.generated)}
+                                for uid, r in self.requests.items()},
+                   "survivors": survivors}
+            if self.scheduler is not None:
+                rec["prefill_jobs"] = self.scheduler.jobs_report()
+            self._journal_append(rec)
+            if self.journal is not None:
+                try:
+                    self.journal.flush(force_sync=True)
+                except OSError:
+                    self.counters["journal_write_failed"] += 1
+        terminal = len(self.requests) - len(survivors)
+        return {"drained": not survivors, "completed": terminal,
+                "survivors": survivors}
+
+    def drain(self, deadline_ms: float | None = None,
+              max_steps: int = 10000) -> dict:
+        """Blocking graceful drain: close admissions, step until the batch
+        and queue empty, ``deadline_ms`` passes (on the engine clock) or
+        ``max_steps`` steps ran, then snapshot the ledger.  Returns the
+        :meth:`finish_drain` report plus the steps spent."""
+        self.begin_drain()
+        t0 = self.clock()
+        steps = 0
+        while self.has_work() and steps < max_steps:
+            if deadline_ms is not None \
+                    and (self.clock() - t0) * 1e3 > deadline_ms:
+                break
+            self.step()
+            steps += 1
+        report = self.finish_drain()
+        report["steps"] = steps
+        return report
+
+    def recover(self, journal_dir: str | None = None) -> dict:
+        """Rebuild every non-terminal journaled request into this (fresh)
+        engine and continue decode.
+
+        Each live request comes back with its journaled prompt and tokens
+        and re-enters the batch through :meth:`_try_admit`: its prompt
+        prefills into a fresh slot or pages and its ``generated[:-1]``
+        replays through ``decode_step``, so its K/V rows are bitwise the
+        pre-crash ones, and decode resumes by feeding ``generated[-1]``
+        where the dead process stopped.  Under greedy decode the resumed
+        stream is bitwise the uninterrupted run's, and tokens emitted but
+        lost to an unsynced journal tail are re-derived and re-emitted.
+
+        A journal that pins packed weights (a ``ckpt`` record) refuses to
+        resume unless this engine restored the same step with the same
+        manifest fingerprint.  Requests whose tokens already reach
+        ``max_new_tokens`` (terminal record lost in the tail) are finalized
+        FINISHED without re-admission.  Recovery may requeue past
+        ``max_queue`` (repopulation, not load)."""
+        if journal_dir is not None:
+            if self.journal is None:
+                self.journal = RequestJournal(journal_dir,
+                                              sync=self.journal_sync)
+            elif os.path.abspath(self.journal.dir) \
+                    != os.path.abspath(journal_dir):
+                raise JournalError(
+                    f"engine already journals to {self.journal.dir}; "
+                    f"refusing to recover from {journal_dir}")
+        if self.journal is None:
+            raise JournalError(
+                "recover() needs a journal: pass journal_dir= or "
+                "construct the engine with journal_dir=")
+        state = replay(self.journal.records)
+        ck = state.checkpoint
+        if ck is not None:
+            pin = self._weights_pin
+            if pin is None:
+                raise JournalError(
+                    f"journal pins packed weights to step {ck['step']} "
+                    f"of {ck['dir']} but this engine never restored a "
+                    "checkpoint; load_weights() that step first — "
+                    "bitwise resume is only promised under the same "
+                    "weight bytes")
+            if ck.get("fingerprint") and pin.get("fingerprint") \
+                    and ck["fingerprint"] != pin["fingerprint"]:
+                raise JournalError(
+                    f"journal pins packed weights to manifest "
+                    f"fingerprint {ck['fingerprint']} (step "
+                    f"{ck['step']}) but this engine restored "
+                    f"{pin['fingerprint']} (step {pin['step']})")
+            if ck.get("step") != pin.get("step"):
+                raise JournalError(
+                    f"journal pins packed weights to step {ck['step']} "
+                    f"but this engine restored step {pin['step']}")
+        report = {"replayed_records": len(self.journal.records),
+                  "requests": len(state.requests),
+                  "already_terminal": 0, "resumed": 0, "finalized": 0,
+                  "dangling_tokens": state.dangling_tokens,
+                  "truncated_bytes":
+                      self.journal.stats.get("truncated_bytes", 0),
+                  "corrupt_record_index":
+                      self.journal.stats.get("corrupt_record_index")}
+        now = self.clock()
+        for rr in state.requests.values():
+            if rr.terminal:
+                report["already_terminal"] += 1
+                continue
+            req = Request(uid=rr.uid,
+                          prompt=np.asarray(rr.prompt, np.int32),
+                          max_new_tokens=rr.max_new_tokens,
+                          generated=list(rr.tokens),
+                          deadline_ms=rr.deadline_ms,
+                          ttft_budget_ms=rr.ttft_budget_ms)
+            # the deadline anchors restart: the dead process's wall time is
+            # gone, and a recovered stream should not expire as it resumes
+            req.submitted_at = now
+            if rr.tokens:
+                req.first_token_at = now
+                req._last_token_at = now
+            self.requests[req.uid] = req
+            self.recovered_uids.append(req.uid)
+            if len(rr.tokens) >= rr.max_new_tokens:
+                self._mark_terminal(req, RequestState.FINISHED,
+                                    REASON_MAX_NEW)
+                report["finalized"] += 1
+                continue
+            req.state = RequestState.QUEUED
+            self.queue.append(req)
+            report["resumed"] += 1
+            self.counters["recovered"] += 1
+        # place as many as fit now; the rest admit as slots free up
+        self._pump()
+        self._journal_flush()
+        return report
 
     # -- terminal transitions ------------------------------------------
     def _mark_terminal(self, req: Request, state: RequestState, reason: str,
@@ -994,6 +1299,8 @@ class ServeEngine:
         req.error = error
         req.done = True
         self.counters[f"{state.value.lower()}:{reason}"] += 1
+        self._journal_append({"t": "terminal", "uid": req.uid,
+                              "state": state.value, "reason": reason})
 
     def _finish_request(self, i: int, state: RequestState, reason: str,
                         error: Exception | None = None):
@@ -1074,6 +1381,8 @@ class ServeEngine:
             report["kv_pool"] = self.kv_pool.stats()
         if self.scheduler is not None:
             report["scheduler"] = self.scheduler.report()
+        if self.journal is not None:
+            report["journal"] = self.journal.report()
         if self.watchdog is not None:
             report["watchdog"] = self.watchdog.report()
         return report
@@ -1111,6 +1420,8 @@ class ServeEngine:
                 self.metrics.observe("ttft_ms", req.ttft_ms())
                 req.generated.append(req._next)
                 out.append((req.uid, req._next))
+                self._journal_append({"t": "token", "uid": req.uid,
+                                      "tok": int(req._next)})
                 if len(req.generated) >= req.max_new_tokens:
                     self._finish_request(i, RequestState.FINISHED,
                                          REASON_MAX_NEW)
@@ -1138,6 +1449,8 @@ class ServeEngine:
             req.generated.append(tok)
             self.lengths[i] += 1
             out.append((req.uid, tok))
+            self._journal_append({"t": "token", "uid": req.uid,
+                                  "tok": tok})
             if req._last_token_at is not None:
                 self.metrics.observe("itl_ms",
                                      (now - req._last_token_at) * 1e3)
@@ -1150,8 +1463,11 @@ class ServeEngine:
         return out
 
     def _finish_step(self, t0: float):
-        """The watchdog hears the step's heartbeat (on the engine clock)
-        and its verdicts run the degradation ladder."""
+        """Step-boundary work: one journal flush commits the step's token
+        records (the ``journal_sync='batch'`` fsync point), then the
+        watchdog hears the step's heartbeat (on the engine clock) and its
+        verdicts run the degradation ladder."""
+        self._journal_flush()
         if self.watchdog is None:
             return
         verdict = self.watchdog.beat((self.clock() - t0) * 1e3)

@@ -3,9 +3,7 @@
 Counterpart of ``repro/serving/faults.py``: the same sites, kinds, rules,
 injector draws (blake2b over ``(seed, site, occurrence)``), spec grammar
 and chaos harness, so one schedule fires the same events at the same
-boundary crossings in either package's engine.  The kill-and-recover
-sweep (``crash_restart_sweep``) comes with the request journal (ROADMAP
-§1 item 4b).
+boundary crossings in either package's engine.
 
 The engine's failure handling has to be *deterministic*, not just
 "doesn't crash": the MixFP4 format bit lives in the sign of the E4M3
@@ -26,7 +24,8 @@ This module is pure host-side machinery (no torch):
 * :class:`FaultInjector` — the seeded schedule.  The engine calls
   ``fire(site, ...)`` at each of its host/device boundaries —
   ``prefill``, ``decode``, ``cow_copy``, ``pool_acquire``,
-  ``checkpoint_read`` — and the injector answers with a
+  ``checkpoint_read``, ``journal_write``, ``process_crash`` — and the
+  injector answers with a
   :class:`FaultAction`: raise a typed error, poison a victim's logits
   (NaN), deny a pool-page acquisition, or advance the clock (a "slow"
   step).  Every fired event lands in ``injector.log``.  A ``dispatch``
@@ -43,6 +42,10 @@ This module is pure host-side machinery (no torch):
   fault-free oracle, affected streams a strict prefix, every fatal fault
   resolving to exactly one terminal state, and no pool page /
   prefix-tree refcount leaks after drain.
+* :func:`crash_restart_sweep` — kill-and-recover chaos: a seeded
+  ``process_crash`` at each (strided) step boundary, the engine abandoned
+  as a SIGKILL leaves it, a fresh engine ``recover()``-ed from the
+  journal, and every stitched stream held bitwise to the oracle's.
 
 CLI::
 
@@ -50,6 +53,8 @@ CLI::
         --families dense,moe --seeds 0,1,2 --device cpu
     PYTHONPATH=src python -m repro_torch.serving.faults \
         --families dense --seeds 0,1 --act-quant mixfp4 --device cuda
+    PYTHONPATH=src python -m repro_torch.serving.faults \
+        --families dense --seeds 0 --crash --crash-stride 2 --device cpu
 """
 from __future__ import annotations
 
@@ -61,13 +66,14 @@ __all__ = [
     "SITES", "KINDS", "FaultRule", "FaultAction", "InjectedFault",
     "FaultInjector", "VirtualClock", "SystemClock", "parse_faults",
     "drive", "schedule_for_seed", "check_invariants", "chaos_sweep",
+    "crash_restart_sweep",
 ]
 
 # Engine host/device boundaries an injector can hook.  ``journal_write``
-# guards every request-journal append (the journal is ROADMAP §1 item 4b:
-# the port's engine has none yet, so it never crosses this site);
-# ``process_crash`` fires at the top of ``engine.step()`` — an 'error'
-# there simulates a process kill between steps.
+# guards every request-journal append (serving.journal); ``process_crash``
+# fires at the top of ``engine.step()`` — an 'error' there simulates
+# SIGKILL between steps (the harness abandons the engine un-flushed and
+# recovers a fresh one from the journal).
 SITES = ("prefill", "decode", "cow_copy", "pool_acquire",
          "checkpoint_read", "journal_write", "process_crash")
 
@@ -409,6 +415,113 @@ def check_invariants(oracle: dict, got: dict, injector,
     return bad
 
 
+def crash_restart_sweep(make_engine, prompts, *, journal_root,
+                        max_new_tokens=4, crash_stride=1,
+                        max_crashes=32) -> dict:
+    """Kill-and-recover chaos: crash at EVERY step boundary, recover,
+    assert survivor streams bitwise.
+
+    For each boundary ``k`` (strided), a seeded ``process_crash`` fault
+    fires at the top of step ``k``; the harness abandons that engine
+    exactly as a SIGKILL would (no flush, no close — the journal holds
+    what its sync policy committed; ``make_engine`` should journal with
+    ``journal_sync='always'`` so the crash point, not buffering, decides
+    what survives), builds a FRESH engine over the same journal dir,
+    calls ``engine.recover()`` and drives it to drain.  The invariant is
+    the tentpole claim: for every request, pre-crash tokens ++
+    post-recovery tokens must be **bitwise** the fault-free oracle's
+    stream, every request must still reach a terminal state, and a paged
+    pool must end with ``pages_active == 0`` (no leaked pages or
+    prefix-tree refcounts).
+
+    ``make_engine(faults=..., journal_dir=...)`` must build a fresh
+    engine (same config/weights) each call; ``journal_dir=None`` means
+    no journal (the oracle run).  Raises AssertionError listing every
+    violation; returns a report dict otherwise."""
+    import os
+
+    oracle = drive(make_engine(faults=None, journal_dir=None), prompts,
+                   max_new_tokens=max_new_tokens)
+    report: dict = {"oracle_steps": oracle["steps"], "crashes": []}
+    violations: list[str] = []
+    boundaries = list(range(1, oracle["steps"] + 1, crash_stride))
+    boundaries = boundaries[:max_crashes]
+    from repro_torch.serving.engine import Request
+    for k in boundaries:
+        jd = os.path.join(journal_root, f"crash_{k:04d}")
+        inj = FaultInjector(k, [FaultRule("process_crash", "error",
+                                          at=(k,))])
+        eng = make_engine(faults=inj, journal_dir=jd)
+        reqs = [Request(uid=i, prompt=_np_prompt(p),
+                        max_new_tokens=max_new_tokens)
+                for i, p in enumerate(prompts)]
+        pre: dict = {r.uid: [] for r in reqs}
+        for r in reqs:
+            eng.submit(r)
+        crashed = False
+        steps = 0
+        while eng.has_work():
+            try:
+                out = eng.step()
+            except InjectedFault as e:
+                if e.site != "process_crash":
+                    raise
+                crashed = True
+                break
+            for uid, tok in out:
+                pre[uid].append(tok)
+            steps += 1
+            if steps > 2000:
+                raise RuntimeError("crash harness livelocked pre-crash")
+        if not crashed:
+            # the schedule outran the run (admission timing shifted the
+            # step count); nothing to recover — skip the boundary
+            report["crashes"].append({"boundary": k, "skipped": True})
+            continue
+        # abandoned: eng is dropped with whatever the journal committed
+        eng2 = make_engine(faults=None, journal_dir=jd)
+        rec = eng2.recover()
+        post: dict = {}
+        steps = 0
+        while eng2.has_work():
+            for uid, tok in eng2.step():
+                post.setdefault(uid, []).append(tok)
+            steps += 1
+            if steps > 2000:
+                raise RuntimeError("crash harness livelocked post-crash")
+        for uid, want in oracle["streams"].items():
+            full = pre.get(uid, []) + post.get(uid, [])
+            if full != want:
+                violations.append(
+                    f"boundary {k}: uid {uid} resumed stream != oracle: "
+                    f"pre={pre.get(uid)} post={post.get(uid)} "
+                    f"want={want}")
+            req = eng2.requests.get(uid)
+            pre_req = eng.requests.get(uid)
+            terminal = (req is not None and req.state.terminal) or \
+                (req is None and pre_req is not None
+                 and pre_req.state.terminal)
+            if not terminal:
+                violations.append(
+                    f"boundary {k}: uid {uid} never reached a terminal "
+                    "state after recovery")
+        pool = eng2.pool_report()
+        if pool is not None and pool["pages_active"] != 0:
+            violations.append(
+                f"boundary {k}: pool leaked {pool['pages_active']} "
+                "active pages after recovery drain")
+        report["crashes"].append({
+            "boundary": k, "skipped": False,
+            "recovered": rec["resumed"], "finalized": rec["finalized"],
+            "already_terminal": rec["already_terminal"],
+        })
+    report["ok"] = not violations
+    if violations:
+        raise AssertionError("crash-restart sweep violations:\n  "
+                             + "\n  ".join(violations))
+    return report
+
+
 def chaos_sweep(make_engine, prompts, seeds, *, max_new_tokens=4,
                 schedule=None) -> dict:
     """Sweep seeded schedules against the fault-free oracle.
@@ -485,6 +598,12 @@ def main(argv=None) -> int:
                          "invariants hold there too, and a 'dispatch' "
                          "fault exercises the fused->2-pass degradation; "
                          "dense only)")
+    ap.add_argument("--crash", action="store_true",
+                    help="also run the kill-and-recover sweep: crash at "
+                         "every step boundary, recover from the journal, "
+                         "assert resumed streams bitwise the oracle")
+    ap.add_argument("--crash-stride", type=int, default=1,
+                    help="crash every Nth boundary (a time knob)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     seeds = [int(s) for s in args.seeds.split(",") if s]
@@ -506,8 +625,14 @@ def main(argv=None) -> int:
             kw.update(kv_quant="mixfp4", kv_pool=2 * batch * 2 + 1,
                       kv_page_len=16)
 
-        def make_engine(faults=None, _cfg=cfg, _p=params, _kw=kw):
-            return ServeEngine(_cfg, _p, faults=faults, **_kw)
+        def make_engine(faults=None, journal_dir=None,
+                        _cfg=cfg, _p=params, _kw=kw):
+            jkw = dict(_kw)
+            if journal_dir is not None:
+                # 'always' so the crash point, not fsync batching,
+                # decides what the recovery run sees on disk
+                jkw.update(journal_dir=journal_dir, journal_sync="always")
+            return ServeEngine(_cfg, _p, faults=faults, **jkw)
 
         try:
             rep = chaos_sweep(make_engine, prompts, seeds,
@@ -518,6 +643,22 @@ def main(argv=None) -> int:
         except AssertionError as e:
             print(f"[chaos] {family}: FAIL\n{e}")
             ok = False
+        if args.crash:
+            import tempfile
+            with tempfile.TemporaryDirectory() as root:
+                try:
+                    crep = crash_restart_sweep(
+                        make_engine, prompts, journal_root=root,
+                        max_new_tokens=args.new_tokens,
+                        crash_stride=args.crash_stride)
+                    ran = [c for c in crep["crashes"]
+                           if not c.get("skipped")]
+                    print(f"[chaos] {family}: crash-restart OK "
+                          f"({len(ran)}/{len(crep['crashes'])} boundaries, "
+                          f"{crep['oracle_steps']} oracle steps)")
+                except AssertionError as e:
+                    print(f"[chaos] {family}: crash-restart FAIL\n{e}")
+                    ok = False
     print("[chaos] sweep", "OK" if ok else "FAILED")
     return 0 if ok else 1
 

@@ -83,7 +83,7 @@ def test_entry_points_raise_without_gpu():
     ServeEngine(cfg, params, batch_size=1, max_len=16, device="cpu")
 
 
-def test_launch_serve_runs_on_cpu_when_asked(capsys):
+def test_launch_serve_runs_on_cpu_when_asked(capsys, tmp_path):
     from repro_torch.launch import serve
     serve.main(["--smoke", "--device", "cpu", "--kv-quant", "mixfp4",
                 "--requests", "3", "--batch", "2", "--new-tokens", "3",
@@ -130,6 +130,27 @@ def test_launch_serve_runs_on_cpu_when_asked(capsys):
     assert "'rejected:queue_full': 1" in out
     assert "'injected_slow_ms': 20" in out
     assert "injector fired 4 event(s): {'slow': 4}" in out
+    # a journaled run killed by an injected crash at its fourth step, then
+    # a run that resumes the journal before serving its own requests
+    jdir = str(tmp_path / "journal")
+    journaled = ["--smoke", "--device", "cpu", "--kv-quant", "mixfp4",
+                 "--requests", "3", "--batch", "2", "--new-tokens", "3",
+                 "--max-len", "32", "--journal-dir", jdir]
+    serve.main(journaled + ["--journal-sync", "always", "--inject-faults",
+                            "0:process_crash=error@3"])
+    out = capsys.readouterr().out
+    assert (f"request journal at {jdir} (sync=always): 0 record(s) on "
+            "disk, 0 torn/corrupt byte(s) truncated") in out
+    assert "injected process crash after 8 tokens" in out
+    serve.main(journaled + ["--recover"])
+    out = capsys.readouterr().out
+    assert f"request journal at {jdir} (sync=batch): 13 record(s)" in out
+    assert ("journal recovery: 13 record(s) -> 3 request(s) (2 already "
+            "terminal, 1 resumed, 0 finalized from history)") in out
+    assert "3 requests, 10 tokens" in out
+    assert "lifecycle: {'FINISHED': 4}" in out
+    with pytest.raises(SystemExit):
+        serve.main(["--smoke", "--device", "cpu", "--recover"])
     with pytest.raises(ValueError, match="bad fault spec"):
         serve.main(["--smoke", "--device", "cpu", "--inject-faults",
                     "decode=slow"])

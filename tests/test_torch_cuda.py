@@ -27,8 +27,11 @@ on the same state; attention and the KV write at Qwen1.5-MoE's heads
 (dh 128, g 1); attention at StarCoder2-15B's heads (dh 128, g 12, walked
 in passes of at most 8 heads).  The serving lifecycle on the card: the
 fused W4A4 rung with exact launch counts on both sides of it, poison
-isolation (survivors bitwise the card's own fault-free run) and the chaos
-sweep on a paged engine.
+isolation (survivors bitwise the card's own fault-free run), the chaos
+sweep on a paged engine, the paged -> fixed-slot rung leaving the
+migrated requests' K/V bytes bitwise an un-migrated run's, and the
+kill-and-recover sweep on fixed, paged and chunked engines with every
+request's K/V bytes bitwise the uninterrupted run's.
 """
 import functools
 
@@ -888,3 +891,105 @@ def test_chaos_sweep_on_a_paged_engine_on_the_card(cuda):
                                 max_new_tokens=4)
     assert report["ok"]
     assert all(s["events"] >= 1 for s in report["schedules"])
+
+
+# ---------------------------------------------------------------------------
+# history replay: the paged rung and crash recovery, K/V bitwise on the card
+# ---------------------------------------------------------------------------
+def _replay_config():
+    """A small-width dense model with gemma2-2b's features (alternating
+    local and global attention, softcaps, GeGLU) and enough depth and
+    context for the prefill and decode attention's differing sums to reach
+    the 4-bit K/V bytes of the layers past the first."""
+    return configs.smoke_config("gemma2-2b").replace(
+        name="replay-card", n_layers=8, d_model=512, n_heads=8,
+        n_kv_heads=4, head_dim=128, d_ff=1024, vocab=1024, window=128,
+        attn_chunk=1024)
+
+
+def _replay_requests(cfg, lens, new_tokens):
+    rng = np.random.RandomState(7)
+    return [Request(uid=i, prompt=rng.randint(0, cfg.vocab, n).astype(
+        np.int32), max_new_tokens=new_tokens) for i, n in enumerate(lens)]
+
+
+def _rows_equal(got: dict, want: dict) -> list:
+    """The uids whose captured K/V bytes differ."""
+    return sorted(uid for uid in want
+                  if any(not torch.equal(a, got[uid][k])
+                         for k, a in want[uid].items()))
+
+
+def test_paged_rung_on_the_card_keeps_the_kv_bytes(cuda):
+    """Three requests mid-stream when the paged -> fixed-slot rung fires:
+    after the migration every K/V byte they wrote is bitwise an
+    un-migrated fixed-slot run's (the generated tokens replay through the
+    decode kernel that first wrote their rows), and the streams are the
+    same."""
+    smoke = _chip_smoke()
+    cfg = _replay_config()
+    params = build_model(cfg).init(0, device=cuda, pack="mixfp4")
+    lens, new = (300, 280, 330, 400), 32
+
+    def mk(**kw):
+        return ServeEngine(cfg, params, batch_size=4, max_len=1024,
+                           kv_quant="mixfp4", device=cuda, **kw)
+
+    oracle = mk()
+    want = smoke.capture_rows(oracle, {0, 1, 2})
+    reqs = _replay_requests(cfg, lens, new)
+    for r in reqs:
+        oracle.submit(r)
+    streams = smoke.drain(oracle, {})
+    # 331, 311, 361 rows: 21 + 20 + 23 pages in use, too few left for the
+    # fourth request's 27 while they decode, enough for it alone
+    eng = mk(kv_pool=71, kv_page_len=16, degrade_after_deferrals=1)
+    got = smoke.capture_rows(eng, {0, 1, 2})
+    reqs = _replay_requests(cfg, lens, new)
+    for r in reqs[:3]:
+        eng.submit(r)
+    out = smoke.drain(eng, {}, steps=5)
+    eng.submit(reqs[3])
+    smoke.drain(eng, out)
+    assert eng.counters["degraded_paged_to_fixed"] == 1
+    assert out == streams
+    assert _rows_equal(got, want) == []
+
+
+@pytest.mark.parametrize("kw", [{}, {"kv_pool": 65, "kv_page_len": 16},
+                                {"kv_pool": 65, "kv_page_len": 16,
+                                 "prefill_chunk": 128}],
+                         ids=["fixed", "paged", "paged_chunked"])
+def test_crash_restart_sweep_on_the_card(cuda, tmp_path, kw):
+    """Kill and recover at strided step boundaries on the card: every
+    stitched stream is the uninterrupted run's, no page stays active, and
+    every request's K/V bytes (read as it finishes) are the uninterrupted
+    run's, the resumed ones rebuilt by the replay included."""
+    from repro_torch.serving import faults
+
+    smoke = _chip_smoke()
+    cfg = _replay_config()
+    params = build_model(cfg).init(0, device=cuda, pack="mixfp4")
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, cfg.vocab, n).astype(np.int32)
+               for n in (250, 180, 300)]
+    built = []
+
+    def make_engine(faults=None, journal_dir=None):
+        eng = ServeEngine(cfg, params, batch_size=2, max_len=512,
+                          kv_quant="mixfp4", device=cuda, faults=faults,
+                          journal_dir=journal_dir, journal_sync="always",
+                          **kw)
+        built.append(smoke.capture_rows(eng, {0, 1, 2}))
+        return eng
+
+    rep = faults.crash_restart_sweep(make_engine, prompts,
+                                     journal_root=str(tmp_path),
+                                     max_new_tokens=12, crash_stride=4,
+                                     max_crashes=4)
+    ran = [c for c in rep["crashes"] if not c["skipped"]]
+    assert sum(c["recovered"] for c in ran) >= 2, rep
+    oracle, runs = built[0], built[1:]
+    assert sorted(oracle) == [0, 1, 2]
+    for rows in runs:
+        assert _rows_equal(rows, {u: oracle[u] for u in rows}) == []

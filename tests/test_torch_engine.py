@@ -157,32 +157,38 @@ def test_kv_cache_bytes_and_packing_match_reference(jax_engine, packed):
         jax_engine.params)
 
 
-@pytest.mark.parametrize("kw", [{"journal_dir": "j"}, {"mesh": object()}])
+# mesh serving is refused whatever the KV cache layout
+@pytest.mark.parametrize("kw", [{"mesh": object()},
+                                {"mesh": object(), "kv_pool": 9}])
 def test_unported_options_raise(packed, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port_engine(packed, **kw)
 
 
 # a lifecycle option the port took over -> (a good value given the port's
-# faults module, a check that the engine carries it)
+# faults module and a scratch directory, a check that the engine carries it)
 LIFECYCLE_OPTIONS = {
+    "journal_dir": (
+        lambda flt, tmp: str(tmp),
+        lambda e: e.robustness_report()["journaled"]
+        and e.metrics_report()["journal"]["appended"] == 0),
     "ttft_budget_ms": (
-        lambda flt: 5.0,
+        lambda flt, tmp: 5.0,
         lambda e: e.robustness_report()["deadlines"]["ttft_budget_ms"] == 5.0),
     "faults": (
-        lambda flt: flt.FaultInjector(0, []),
+        lambda flt, tmp: flt.FaultInjector(0, []),
         lambda e: e.clock is e.faults.clock),
     "hung_step_budget_ms": (
-        lambda flt: 5.0,
+        lambda flt, tmp: 5.0,
         lambda e: e.robustness_report()["watchdog"]["budget_ms"] == 5.0),
     "deadline_ms": (
-        lambda flt: 5.0,
+        lambda flt, tmp: 5.0,
         lambda e: e.robustness_report()["deadlines"]["deadline_ms"] == 5.0),
 }
 
 
 @pytest.mark.parametrize("option", list(LIFECYCLE_OPTIONS))
-def test_lifecycle_options_build_and_are_carried(packed, option):
+def test_lifecycle_options_build_and_are_carried(packed, option, tmp_path):
     """Each lifecycle option the port took over builds an engine that
     carries it.  The reference validates neither ``ttft_budget_ms`` nor
     ``deadline_ms``; its checks of the other lifecycle arguments are held
@@ -190,7 +196,7 @@ def test_lifecycle_options_build_and_are_carried(packed, option):
     from repro_torch.serving import faults
 
     value, carries = LIFECYCLE_OPTIONS[option]
-    assert carries(_port_engine(packed, **{option: value(faults)}))
+    assert carries(_port_engine(packed, **{option: value(faults, tmp_path)}))
 
 
 # a check the reference makes of a lifecycle argument -> a bad construction

@@ -376,20 +376,40 @@ def test_fused_dispatch_degrades_to_2pass_bitwise(dense_params):
     assert eng.counters["degraded_fused_to_2pass"] == 1
 
 
+def _capture_rows(eng, rows: dict):
+    """Record into ``rows`` (uid -> packed K/V bytes) each fixed-slot
+    request's rows [0, lengths[i]) as it finishes."""
+    finish = eng._finish_request
+
+    def capture(i, state, reason, error=None):
+        n = int(eng.lengths[i])
+        rows[eng.slots[i].uid] = [
+            getattr(eng.cache[name], plane)[:, i, :n].clone()
+            for name in ("k", "v") for plane in ("payload", "scales")]
+        finish(i, state, reason, error=error)
+
+    eng._finish_request = capture
+    return eng
+
+
 def test_pool_exhaustion_degrades_to_fixed_slot(dense_params):
     """Admissions deferred past the budget abandon the paged pool: every
-    in-flight request migrates by re-prefilling its token history, and
-    the deferred request admits on the fixed-slot path; the streams are
-    the fixed-slot engine's."""
+    in-flight request migrates by replaying its token history (prompt
+    through prefill, generated tokens through decode), and the deferred
+    request admits on the fixed-slot path; the streams and every K/V byte
+    the requests wrote are the fixed-slot engine's."""
     prompts = _prompts(64, [15, 15])
-    oracle = flt.drive(_engine(dense_params, kv_quant="mixfp4",
-                               clock=VirtualClock()),
-                       prompts, max_new_tokens=4)
+    want_rows: dict = {}
+    oracle = flt.drive(_capture_rows(_engine(
+        dense_params, kv_quant="mixfp4", clock=VirtualClock()), want_rows),
+        prompts, max_new_tokens=4)
     # 15 prompt + 4 new - 1 = 18 positions = 2 pages each; the pool holds
     # 2 usable pages, so the second admission defers while the first runs
     eng = _engine(dense_params, kv_quant="mixfp4", kv_pool=3,
                   kv_page_len=16, degrade_after_deferrals=1,
                   clock=VirtualClock())
+    rows: dict = {}
+    _capture_rows(eng, rows)
     a = Request(uid=0, prompt=prompts[0], max_new_tokens=4)
     b = Request(uid=1, prompt=prompts[1], max_new_tokens=4)
     eng.submit(a)
@@ -404,28 +424,35 @@ def test_pool_exhaustion_degrades_to_fixed_slot(dense_params):
     assert streams == oracle["streams"]
     assert a.state is RequestState.FINISHED
     assert b.state is RequestState.FINISHED
+    # uid 0 migrated holding 3 tokens: 2 of them replayed through decode
+    assert eng.replay_decode_steps == 2
+    assert sorted(rows) == sorted(want_rows) == [0, 1]
+    for uid, r in rows.items():
+        assert all(torch.equal(x, y) for x, y in zip(r, want_rows[uid]))
 
 
-def test_robustness_spec_is_the_reference_but_the_paged_rung():
+# every engine configuration whose robustness spec the tests here build
+SPEC_KWARGS = [
+    dict(max_queue=3, deadline_ms=5.0, ttft_budget_ms=2.0,
+         degrade_after_deferrals=2, kv_pool=16, act_quant="mixfp4"),
+    dict(kv_pool=3, degrade_after_deferrals=1),
+    dict(kv_pool=9),
+    dict(act_quant="mixfp4"),
+    dict(act_quant="mixfp4-2pass-rowscale"),
+    dict(max_queue=1, deadline_ms=None),
+    {},
+]
+
+
+def test_robustness_spec_is_the_reference():
     """The port describes its robustness configuration as the reference
-    does, but for the paged rung: it keeps the streams without promising
-    bitwise K/V rows (a re-prefilled history's rows past the first layer
-    come from the prefill attention, not the decode kernel)."""
+    does: both rungs bitwise preserving, the paged one because the
+    migration replays each history through the prefill and decode passes
+    that first wrote it."""
     from repro_torch.serving.engine import engine_robustness_spec
-    kw = dict(max_queue=3, deadline_ms=5.0, ttft_budget_ms=2.0,
-              degrade_after_deferrals=2, kv_pool=16, act_quant="mixfp4")
-    want = jengine.engine_robustness_spec(**kw)
-    got = engine_robustness_spec(**kw)
-    fused, paged = got.pop("degradation_ladder")
-    want_fused, want_paged = want.pop("degradation_ladder")
-    assert got == want
-    assert fused.pop("preserves") == "token streams and K/V bytes"
-    assert fused == want_fused
-    assert want_paged["bitwise_preserving"] is True
-    assert paged.pop("bitwise_preserving") is False
-    assert paged.pop("preserves").startswith("token streams")
-    assert paged == {k: v for k, v in want_paged.items()
-                     if k != "bitwise_preserving"}
+    for kw in SPEC_KWARGS:
+        assert engine_robustness_spec(**kw) == \
+            jengine.engine_robustness_spec(**kw), kw
 
 
 # ---------------------------------------------------------------------------
